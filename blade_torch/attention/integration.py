@@ -1,0 +1,51 @@
+"""Glue between ASA and the DiT: the pluggable ``attention_fn``.
+
+Counterpart of ``blade/attention/integration.py``.  The DiT calls
+``attention_fn(q, k, v, generator=..., layer_index=..., masks=...,
+collect_mask=...)`` for every self-attention.  The generator is folded with
+the layer index so each block draws fresh samples.  Where the flax model
+``sow``s each layer's mask and ``extract_attn_aux`` stacks them, the port's
+``WanModel`` stacks the masks its ``attention_fn`` returns to the same
+``[L, ...]`` contract.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from blade_torch.attention.asa import ASAConfig, asa_attention
+from blade_torch.utils.rng import fold_generator, make_generator
+
+__all__ = ["make_asa_attention_fn", "asa_model_kwargs"]
+
+
+def asa_model_kwargs(asa_cfg: ASAConfig) -> dict:
+    """Model kwargs wiring ASA with the gilbert permutation hoisted to the
+    model: tokens are permuted once per forward (``WanModel.token_perm``)
+    and every attention call runs ``pre_arranged``."""
+    cfg = dataclasses.replace(asa_cfg, pre_arranged=True)
+    return {"attention_fn": make_asa_attention_fn(cfg), "token_perm": asa_cfg.permutations()}
+
+
+def make_asa_attention_fn(asa_cfg: ASAConfig):
+    """Returns ``attention_fn(q, k, v, *, generator, layer_index, masks,
+    collect_mask) -> out`` (or ``(out, mask)`` when ``collect_mask``).
+
+    ``masks`` is a per-layer stack ``[L, ...]`` from an earlier collecting
+    call; layer ``layer_index`` replays its slice and skips the predictor.
+    """
+
+    def attention_fn(q, k, v, *, generator=None, layer_index=0, masks=None,
+                     collect_mask=False, **_):
+        if generator is None:
+            generator = make_generator(0, q.device)
+        gen = fold_generator(generator, layer_index)
+        mask = None if masks is None else masks[layer_index]
+        out, _, mask = asa_attention(q, k, v, asa_cfg, generator=gen, mask=mask,
+                                     return_mask=True)
+        out = out.to(q.dtype)
+        if collect_mask:
+            return out, mask
+        return out
+
+    return attention_fn

@@ -1,0 +1,104 @@
+"""Text-to-video inference CLI, Wan path (counterpart of
+``blade/cli/inference.py``).
+
+The text encoder and checkpoint loading are not ported yet, so the CLI runs
+random weights (``--random-init``) with random text embeddings drawn per
+prompt from a seed derived from the prompt text.
+
+Examples:
+  python -m blade_torch.cli.inference --preset wan-1.3b-480p --random-init \\
+      --prompt "a cat surfing" --steps 8 --output_dir outputs/
+  python -m blade_torch.cli.inference --tiny --random-init --device cpu \\
+      --prompt "a cat surfing" --steps 2
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import zlib
+
+import numpy as np
+import torch
+
+
+def get_args(argv=None):
+    p = argparse.ArgumentParser(description="BLADE PyTorch inference (Wan)")
+    p.add_argument("--prompts", type=str, help="text file, one prompt per line")
+    p.add_argument("--prompt", type=str, help="single prompt")
+    p.add_argument("--output_dir", type=str, default="outputs")
+    p.add_argument("--steps", type=int, default=8)
+    p.add_argument("--seed", type=int, default=8888)
+    p.add_argument("--sparse", action="store_true", default=True)
+    p.add_argument("--dense", dest="sparse", action="store_false")
+    p.add_argument("--mask_refresh_every", type=int, default=0,
+                   help="reuse ASA masks across denoise steps, re-predicting "
+                        "every N steps (0/1 = off)")
+    p.add_argument("--random-init", action="store_true",
+                   help="random weights (smoke/benchmark)")
+    p.add_argument("--tiny", action="store_true", help="tiny CPU preset")
+    p.add_argument("--preset", type=str, default=None,
+                   help="named preset (overrides --tiny): wan-1.3b-480p, wan-tiny")
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device (default: cuda)")
+    return p.parse_args(argv)
+
+
+def build_pipeline(args):
+    """The random-weight pipeline for ``args``: weights drawn from a
+    generator seeded with 0 (as the JAX CLI's ``PRNGKey(0)``), on
+    ``--device``; f32 for the tiny preset, bf16 otherwise."""
+    from blade_torch import config as C
+    from blade_torch.sampling.t2v import T2VPipeline
+    from blade_torch.utils.rng import make_generator
+
+    preset = C.PRESETS[args.preset] if args.preset else (
+        C.WAN_TINY_PRESET if args.tiny else C.WAN_480P)
+    if not args.random_init:
+        raise SystemExit("checkpoint loading is not ported yet: pass --random-init")
+    device = torch.device(args.device or "cuda")
+    return T2VPipeline.random_init(
+        preset, make_generator(0, device), sparse=args.sparse,
+        dtype=torch.float32 if args.tiny else torch.bfloat16)
+
+
+def random_text_embeds(pipe, prompt: str) -> torch.Tensor:
+    """Stand-in for the random-init text encoder: embeddings
+    ``[1, max_text_len, text_dim]`` drawn from a seed derived from the
+    prompt (crc32, stable across processes)."""
+    p = pipe.preset
+    rng = np.random.default_rng(zlib.crc32(prompt.encode()))
+    e = rng.standard_normal((1, p.max_text_len, p.text_dim)).astype(np.float32)
+    return torch.from_numpy(e).to(pipe.device, pipe.dtype)
+
+
+def main(argv=None):
+    from blade_torch.utils.rng import make_generator
+    from blade_torch.utils.video_io import export_video
+
+    args = get_args(argv)
+    if args.prompt:
+        prompts = [args.prompt]
+    elif args.prompts:
+        with open(args.prompts) as f:
+            prompts = [line.strip() for line in f if line.strip()]
+    else:
+        raise SystemExit("need --prompt or --prompts")
+    pipe = build_pipeline(args)
+    os.makedirs(args.output_dir, exist_ok=True)
+    for i, prompt in enumerate(prompts):
+        try:
+            frames = pipe.generate(
+                random_text_embeds(pipe, prompt),
+                generator=make_generator(args.seed + i, pipe.device),
+                num_steps=args.steps, mask_refresh_every=args.mask_refresh_every)
+            path = os.path.join(args.output_dir, f"video_{i:04d}.mp4")
+            out = export_video(pipe.frames_to_uint8(frames[0]).cpu().numpy(), path,
+                               fps=pipe.preset.video.fps)
+            print(f"[{i + 1}/{len(prompts)}] {out}")
+        except Exception as e:  # per-prompt isolation (reference behaviour)
+            print(f"prompt {i} failed: {type(e).__name__}: {e}")
+
+
+if __name__ == "__main__":
+    main()

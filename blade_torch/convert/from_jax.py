@@ -1,0 +1,147 @@
+"""Weight bridge: the JAX package's flax parameter trees -> the port's state
+dicts (diffusers key layout), with numpy only.
+
+* :func:`wan_transformer_state_dict` inverts
+  ``blade/convert/dit_convert.py::convert_wan_transformer``: flax
+  ``kernel [in, out]`` -> torch ``weight [out, in]``, conv kernels
+  ``[*k, in, out]`` -> ``[out, in, *k]``, the ``nn.scan`` layer axis split
+  into ``blocks.{i}``.
+* :func:`wan_vae_state_dict` follows
+  ``blade/convert/vae_convert.py::fake_torch_state_dict`` for the Wan VAE
+  (the decode half the port runs: ``decoder.*`` and ``post_quant_conv.*``).
+
+Trees are nested dicts of arrays, optionally under a top-level ``"params"``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+
+__all__ = ["wan_transformer_state_dict", "wan_vae_state_dict", "to_torch"]
+
+
+def _tree(params: Mapping) -> Mapping:
+    return params["params"] if "params" in params else params
+
+
+def _lin(sd: Dict, name: str, node: Mapping) -> None:
+    sd[f"{name}.weight"] = np.asarray(node["kernel"], np.float32).T.copy()
+    if "bias" in node:
+        sd[f"{name}.bias"] = np.asarray(node["bias"], np.float32)
+
+
+def _norm(sd: Dict, name: str, node: Mapping) -> None:
+    sd[f"{name}.weight"] = np.asarray(node["scale"], np.float32)
+    if "bias" in node:
+        sd[f"{name}.bias"] = np.asarray(node["bias"], np.float32)
+
+
+def _layer(tree: Mapping, i: int) -> Mapping:
+    """Layer ``i``'s params from a scanned (stacked) or unrolled tree."""
+    if "blocks" in tree:
+        def pick(node):
+            if isinstance(node, Mapping):
+                return {k: pick(v) for k, v in node.items()}
+            return np.asarray(node)[i]
+        return pick(tree["blocks"])
+    return tree[f"blocks_{i}"]
+
+
+def wan_transformer_state_dict(params: Mapping, num_layers: int) -> Dict[str, np.ndarray]:
+    """flax ``WanModel`` params -> diffusers ``WanTransformer3DModel`` keys."""
+    p = _tree(params)
+    sd: Dict[str, np.ndarray] = {}
+    w = np.asarray(p["patch_embedding"]["kernel"], np.float32)  # [*k, in, out]
+    sd["patch_embedding.weight"] = np.ascontiguousarray(np.moveaxis(w, (-1, -2), (0, 1)))
+    sd["patch_embedding.bias"] = np.asarray(p["patch_embedding"]["bias"], np.float32)
+    ce = "condition_embedder"
+    _lin(sd, f"{ce}.text_embedder.linear_1", p["text_proj_1"])
+    _lin(sd, f"{ce}.text_embedder.linear_2", p["text_proj_2"])
+    _lin(sd, f"{ce}.time_embedder.linear_1", p["time_embed"]["Dense_0"])
+    _lin(sd, f"{ce}.time_embedder.linear_2", p["time_embed"]["Dense_1"])
+    _lin(sd, f"{ce}.time_proj", p["time_projection"])
+    head = np.asarray(p["head_modulation"], np.float32)
+    sd["scale_shift_table"] = head.reshape(1, 2, head.shape[-1])
+    _lin(sd, "proj_out", p["proj_out"])
+    for i in range(num_layers):
+        lp, b = _layer(p, i), f"blocks.{i}"
+        mod = np.asarray(lp["modulation"], np.float32)
+        sd[f"{b}.scale_shift_table"] = mod.reshape(1, 6, mod.shape[-1])
+        for attn in ("attn1", "attn2"):
+            for proj in ("to_q", "to_k", "to_v"):
+                _lin(sd, f"{b}.{attn}.{proj}", lp[attn][proj])
+            _lin(sd, f"{b}.{attn}.to_out.0", lp[attn]["to_out"])
+            _norm(sd, f"{b}.{attn}.norm_q", lp[attn]["norm_q"])
+            _norm(sd, f"{b}.{attn}.norm_k", lp[attn]["norm_k"])
+        _norm(sd, f"{b}.norm2", lp["norm3"])
+        _lin(sd, f"{b}.ffn.net.0.proj", lp["ffn"]["Dense_0"])
+        _lin(sd, f"{b}.ffn.net.2", lp["ffn"]["Dense_1"])
+    return sd
+
+
+def _flatten(tree: Mapping, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+_LIST_CONTAINERS = ("down_blocks", "up_blocks", "resnets", "attentions",
+                    "upsamplers", "downsamplers", "resample")
+_CAUSAL = {"conv_in", "conv_out", "conv1", "conv2", "conv_shortcut", "time_conv",
+           "quant_conv", "post_quant_conv"}
+_DENSE_1X1 = {"to_qkv", "proj"}
+
+
+def _split_index(seg: str) -> str:
+    """``up_blocks_3`` -> ``up_blocks.3`` for the known list containers."""
+    for c in _LIST_CONTAINERS:
+        if seg.startswith(c + "_") and seg[len(c) + 1:].isdigit():
+            return f"{c}.{seg[len(c) + 1:]}"
+    return seg
+
+
+def _torch_conv(kernel: np.ndarray) -> np.ndarray:
+    nd = kernel.ndim
+    return np.ascontiguousarray(np.transpose(kernel, (nd - 1, nd - 2) + tuple(range(nd - 2))))
+
+
+def wan_vae_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
+    """flax ``WanVAE`` params -> ``AutoencoderKLWan`` keys of the decode half
+    (``decoder.*``, ``post_quant_conv.*``); encoder keys are dropped."""
+    sd: Dict[str, np.ndarray] = {}
+    for path, value in _flatten(_tree(params)):
+        if path[0] not in ("decoder", "post_quant_conv"):
+            continue
+        value = np.asarray(value, np.float32)
+        segs = [_split_index(s) for s in path]
+        leaf, parent = segs[-1], segs[-2] if len(segs) > 1 else ""
+        if leaf == "gamma":
+            images = any(s.startswith("attentions") for s in segs)
+            sd[".".join(segs)] = value.reshape((-1, 1, 1) if images else (-1, 1, 1, 1))
+        elif parent == "conv" and segs[-3] in _CAUSAL:
+            key = ".".join(segs[:-2])
+            sd[f"{key}.{'weight' if leaf == 'kernel' else 'bias'}"] = (
+                _torch_conv(value) if leaf == "kernel" else value)
+        elif parent in _DENSE_1X1:
+            key = ".".join(segs[:-1])
+            sd[f"{key}.{'weight' if leaf == 'kernel' else 'bias'}"] = (
+                np.ascontiguousarray(value.T[..., None, None]) if leaf == "kernel"
+                else value)
+        elif leaf in ("kernel", "bias"):  # resample.1
+            key = ".".join(segs[:-1])
+            sd[f"{key}.{'weight' if leaf == 'kernel' else 'bias'}"] = (
+                _torch_conv(value) if leaf == "kernel" else value)
+        else:
+            raise KeyError(f"unmapped Wan VAE param: {'/'.join(path)}")
+    return sd
+
+
+def to_torch(sd: Mapping[str, np.ndarray], device=None) -> Dict:
+    """numpy state dict -> torch tensors (for ``load_state_dict``)."""
+    import torch
+
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in sd.items()}

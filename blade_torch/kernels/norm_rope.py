@@ -1,0 +1,78 @@
+"""Fused RMS-norm + rotate-half RoPE + head split for the Wan q/k lane.
+
+Counterpart of ``blade/kernels/norm_rope.py::norm_rope_heads``:
+``x [B, S, D] -> rms(x) * scale -> [B, H, S, d] -> y * cos_f + roll(y, d/2)
+* sin_f`` with the full-width tables ``cos_f = [cos|cos]``,
+``sin_f = [-sin|sin]``.  ``x``'s channels arrive de-interleave-permuted
+(``layers.deinterleave_perm`` folded into ``to_q``/``to_k``), which makes
+rotate-half equal to the checkpoint's interleaved-pair RoPE.
+
+The CUDA kernel is ``csrc/norm_rope.cu``; CPU tensors take the plain
+version ``_norm_rope_reference``.  The JAX package's ``heads_pack`` /
+``heads_unpack`` relayouts are not part of this lane (no model calls them).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from blade_torch.kernels._build import CudaKernel, check_inputs, cuda_stream
+
+__all__ = ["norm_rope_heads", "rope_full_tables"]
+
+_norm_rope_kernel = CudaKernel(
+    "norm_rope", "bt_norm_rope", "pppppiiiifp",
+    source="blade_torch/csrc/norm_rope.cu",
+    replaces="blade/kernels/norm_rope.py:102",  # _norm_rope_kernel
+)
+
+
+def rope_full_tables(cos: torch.Tensor, sin: torch.Tensor):
+    """Half-width tables ``[L, d/2]`` -> full-width roll-form tables
+    ``cos_f = [cos|cos]``, ``sin_f = [-sin|sin]`` (both ``[L, d]``)."""
+    return torch.cat([cos, cos], dim=-1), torch.cat([-sin, sin], dim=-1)
+
+
+def _norm_rope_reference(x, scale, cos, sin, num_heads, eps):
+    """Plain version: rms * scale -> head split -> roll-form rope (f32)."""
+    b, s, dim = x.shape
+    d = dim // num_heads
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps) * scale.float()
+    y = y.reshape(b, s, num_heads, d).transpose(1, 2)
+    cos_f, sin_f = rope_full_tables(cos.float(), sin.float())
+    rolled = torch.roll(y, d // 2, dims=-1)
+    return (y * cos_f + rolled * sin_f).to(x.dtype)
+
+
+def norm_rope_heads(
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    num_heads: int,
+    *,
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """``x [B, S, D]`` (bf16 on the card), ``scale [D]`` f32, ``cos``/``sin``
+    ``[S, d/2]`` f32 -> ``[B, H, S, d]`` in ``x``'s dtype."""
+    b, s, dim = x.shape
+    if dim % num_heads or scale.shape != (dim,):
+        raise ValueError(f"norm_rope_heads: bad shapes x {tuple(x.shape)}, "
+                         f"scale {tuple(scale.shape)}, heads {num_heads}")
+    d = dim // num_heads
+    if cos.shape != (s, d // 2) or sin.shape != (s, d // 2):
+        raise ValueError(f"norm_rope_heads: tables must be [{s}, {d // 2}]")
+    if not x.is_cuda:
+        return _norm_rope_reference(x, scale, cos, sin, num_heads, eps)
+    check_inputs("norm_rope_heads", x, dtype=torch.bfloat16)
+    check_inputs("norm_rope_heads", scale, cos, sin, dtype=torch.float32)
+    if dim % 8 or d % 8 or dim // 8 > 1024:
+        raise ValueError(f"norm_rope_heads: kernel needs D % 8 == 0, d % 8 == 0 "
+                         f"and D <= 8192 (D={dim}, d={d})")
+    out = torch.empty((b, num_heads, s, d), dtype=x.dtype, device=x.device)
+    _norm_rope_kernel(x.data_ptr(), scale.data_ptr(), cos.data_ptr(),
+                      sin.data_ptr(), out.data_ptr(), b, s, dim, num_heads,
+                      float(eps), cuda_stream(x.device))
+    return out

@@ -1,0 +1,282 @@
+"""Wan2.1 text-to-video diffusion transformer (PyTorch), T2V.
+
+Counterpart of ``blade/models/wan_dit.py``, with the diffusers
+``WanTransformer3DModel`` state-dict layout: patchify (1,2,2), per-block
+AdaLN with a 6-way modulation table, video self-attention with 3-D RoPE and
+RMS q/k norm, text cross-attention, GELU(tanh) FFN, modulated head.  The
+model output is the flow-matching velocity.
+
+Numerics follow the JAX model: parameters f32; projections in ``dtype``
+(bf16 on the card); LayerNorms, modulation, gates, the time embedding and
+``proj_out`` in f32; the residual stream in ``dtype``.
+
+Self-attention q/k run with the ``deinterleave_perm`` channel permutation
+folded into ``to_q``/``to_k`` and ``norm_q``/``norm_k`` once at load time, so
+``norm_rope_heads`` takes the relayout-free rotate-half form.  With
+``token_perm`` set (ASA), tokens are permuted once after patchify and
+restored once at ``proj_out``.  The I2V image branch is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from blade_torch.kernels.norm_rope import norm_rope_heads
+from blade_torch.models.layers import (
+    FeedForward,
+    Linear,
+    PermutedLinear,
+    PermutedRMSNorm,
+    RMSNorm,
+    TimestepEmbedder,
+    deinterleave_perm,
+    dense_attention_fn,
+    init_lecun_,
+    rope_3d_tables,
+)
+
+__all__ = ["WanConfig", "WanModel", "WAN_1_3B", "WAN_TINY"]
+
+
+@dataclasses.dataclass(frozen=True)
+class WanConfig:
+    dim: int = 1536
+    ffn_dim: int = 8960
+    num_layers: int = 30
+    num_heads: int = 12
+    in_channels: int = 16
+    out_channels: int = 16
+    text_dim: int = 4096
+    freq_dim: int = 256
+    patch_size: Tuple[int, int, int] = (1, 2, 2)
+    eps: float = 1e-6
+    cross_attn_norm: bool = True
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.num_heads
+
+
+WAN_1_3B = WanConfig()
+WAN_TINY = WanConfig(dim=128, ffn_dim=256, num_layers=2, num_heads=2, text_dim=64,
+                     freq_dim=32)
+
+
+def _layer_norm(x: torch.Tensor, eps: float) -> torch.Tensor:
+    return F.layer_norm(x.float(), x.shape[-1:], eps=eps)
+
+
+class WanSelfAttention(nn.Module):
+    def __init__(self, c: WanConfig, dtype, device=None):
+        super().__init__()
+        self.c = c
+        perm = deinterleave_perm(c.num_heads, c.head_dim)
+        kw = dict(compute_dtype=dtype, device=device)
+        self.to_q = PermutedLinear(c.dim, c.dim, perm, **kw)
+        self.to_k = PermutedLinear(c.dim, c.dim, perm, **kw)
+        self.to_v = Linear(c.dim, c.dim, **kw)
+        self.to_out = nn.ModuleList([Linear(c.dim, c.dim, **kw)])
+        self.norm_q = PermutedRMSNorm(c.dim, perm, eps=c.eps, device=device)
+        self.norm_k = PermutedRMSNorm(c.dim, perm, eps=c.eps, device=device)
+
+    def forward(self, x, cos, sin, attention_fn, attn_kwargs):
+        c = self.c
+        b, l, _ = x.shape
+        q = norm_rope_heads(self.to_q(x), self.norm_q.weight, cos, sin,
+                            c.num_heads, eps=c.eps)
+        k = norm_rope_heads(self.to_k(x), self.norm_k.weight, cos, sin,
+                            c.num_heads, eps=c.eps)
+        v = self.to_v(x).reshape(b, l, c.num_heads, c.head_dim).transpose(1, 2).contiguous()
+        out = attention_fn(q, k, v, **attn_kwargs)
+        aux = None
+        if isinstance(out, tuple):
+            out, aux = out
+        out = out.transpose(1, 2).reshape(b, l, c.dim)
+        return self.to_out[0](out), aux
+
+
+class WanCrossAttention(nn.Module):
+    """Text cross-attention (plain torch: the context is <= 512 tokens)."""
+
+    def __init__(self, c: WanConfig, dtype, device=None):
+        super().__init__()
+        self.c = c
+        kw = dict(compute_dtype=dtype, device=device)
+        self.to_q = Linear(c.dim, c.dim, **kw)
+        self.to_k = Linear(c.dim, c.dim, **kw)
+        self.to_v = Linear(c.dim, c.dim, **kw)
+        self.to_out = nn.ModuleList([Linear(c.dim, c.dim, **kw)])
+        self.norm_q = RMSNorm(c.dim, eps=c.eps, device=device)
+        self.norm_k = RMSNorm(c.dim, eps=c.eps, device=device)
+
+    def forward(self, x, context):
+        c = self.c
+        b, l, _ = x.shape
+
+        def heads(t):
+            return t.reshape(b, t.shape[1], c.num_heads, c.head_dim).transpose(1, 2)
+
+        q = heads(self.norm_q(self.to_q(x)))
+        k = heads(self.norm_k(self.to_k(context)))
+        v = heads(self.to_v(context))
+        s = torch.matmul(q.float(), k.float().transpose(-1, -2)) / np.sqrt(c.head_dim)
+        p = torch.softmax(s, dim=-1).to(v.dtype)
+        out = torch.matmul(p, v).transpose(1, 2).reshape(b, l, c.dim)
+        return self.to_out[0](out.to(self.to_out[0].compute_dtype))
+
+
+class WanBlock(nn.Module):
+    def __init__(self, c: WanConfig, dtype, device=None):
+        super().__init__()
+        self.c = c
+        self.scale_shift_table = nn.Parameter(torch.zeros(1, 6, c.dim, device=device))
+        self.attn1 = WanSelfAttention(c, dtype, device)
+        self.attn2 = WanCrossAttention(c, dtype, device)
+        # diffusers' `norm2` is the cross-attention LayerNorm (flax `norm3`).
+        self.norm2 = (nn.LayerNorm(c.dim, eps=c.eps, elementwise_affine=True,
+                                   device=device)
+                      if c.cross_attn_norm else nn.Identity())
+        self.ffn = FeedForward(c.dim, c.ffn_dim, compute_dtype=dtype, device=device)
+
+    def forward(self, x, context, temb6, cos, sin, attention_fn, attn_kwargs):
+        c = self.c
+        e = (self.scale_shift_table + temb6).float()
+        shift1, scale1, gate1, shift2, scale2, gate2 = (e[:, i:i + 1] for i in range(6))
+        dtype = x.dtype
+        h = _layer_norm(x, c.eps) * (1 + scale1) + shift1
+        attn, aux = self.attn1(h.to(dtype), cos, sin, attention_fn, attn_kwargs)
+        x = x + (gate1 * attn.float()).to(dtype)
+        norm_x = self.norm2(x.float())
+        x = x + self.attn2(norm_x.to(dtype), context).to(dtype)
+        h = _layer_norm(x, c.eps) * (1 + scale2) + shift2
+        x = x + (gate2 * self.ffn(h.to(dtype)).float()).to(dtype)
+        return x, aux
+
+
+class _TextEmbedder(nn.Module):
+    def __init__(self, text_dim, dim, dtype, device=None):
+        super().__init__()
+        self.linear_1 = Linear(text_dim, dim, compute_dtype=dtype, device=device)
+        self.linear_2 = Linear(dim, dim, compute_dtype=dtype, device=device)
+
+    def forward(self, t):
+        return self.linear_2(F.gelu(self.linear_1(t), approximate="tanh"))
+
+
+class _ConditionEmbedder(nn.Module):
+    def __init__(self, c: WanConfig, dtype, device=None):
+        super().__init__()
+        self.text_embedder = _TextEmbedder(c.text_dim, c.dim, dtype, device)
+        self.time_embedder = TimestepEmbedder(c.dim, c.freq_dim, device=device)
+        self.time_proj = Linear(c.dim, 6 * c.dim, compute_dtype=torch.float32,
+                                device=device)
+
+
+class WanModel(nn.Module):
+    """Wan DiT over latent video ``[B, C, T, H, W]`` -> velocity (f32).
+
+    ``attention_fn(q, k, v, **attn_kwargs)`` runs every block's
+    self-attention over ``[B, H, L, D]`` in token order ``(t, h, w)``
+    t-major (or in ``token_perm`` order).  With
+    ``attn_kwargs['collect_mask']`` the forward returns ``(velocity,
+    masks [L, ...])``, the stand-in for flax's ``sow``.
+    """
+
+    def __init__(self, cfg: WanConfig, *, dtype=torch.bfloat16,
+                 attention_fn: Callable = dense_attention_fn,
+                 token_perm: Optional[Tuple[Any, Any]] = None, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = dtype
+        self.attention_fn = attention_fn
+        self.token_perm = token_perm
+        if token_perm is not None:
+            for name, idx in zip(("_perm_idx", "_inv_idx"), token_perm):
+                self.register_buffer(name, torch.from_numpy(np.array(idx, np.int64)).to(device),
+                                     persistent=False)
+        c = cfg
+        pt, ph, pw = c.patch_size
+        self.patch_embedding = nn.Conv3d(c.in_channels, c.dim, kernel_size=c.patch_size,
+                                         stride=c.patch_size, device=device)
+        self.condition_embedder = _ConditionEmbedder(c, dtype, device)
+        self.blocks = nn.ModuleList([WanBlock(c, dtype, device)
+                                     for _ in range(c.num_layers)])
+        self.scale_shift_table = nn.Parameter(torch.zeros(1, 2, c.dim, device=device))
+        self.proj_out = Linear(c.dim, pt * ph * pw * c.out_channels,
+                               compute_dtype=torch.float32, device=device)
+        self._rope: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    @torch.no_grad()
+    def random_init_(self, generator: torch.Generator) -> "WanModel":
+        """flax-default random weights: lecun-normal projections, zero
+        biases, unit norm scales, N(0, 0.02) modulation tables."""
+        init_lecun_(self, generator)
+        for blk in self.blocks:
+            blk.scale_shift_table.normal_(0.0, 0.02, generator=generator)
+        self.scale_shift_table.normal_(0.0, 0.02, generator=generator)
+        return self
+
+    def _rope_tables(self, grid, device):
+        key = (grid, str(device))
+        if key not in self._rope:
+            cos, sin = rope_3d_tables(self.cfg.head_dim, grid)
+            if self.token_perm is not None:
+                perm = np.asarray(self.token_perm[0])
+                cos, sin = cos[perm], sin[perm]
+            self._rope[key] = (torch.from_numpy(np.ascontiguousarray(cos)).to(device),
+                               torch.from_numpy(np.ascontiguousarray(sin)).to(device))
+        return self._rope[key]
+
+    def _patchify(self, latents):
+        """Conv3d with kernel == stride, as one matmul over patch features."""
+        c = self.cfg
+        b, ch, t, h, w = latents.shape
+        pt, ph, pw = c.patch_size
+        gt, gh, gw = t // pt, h // ph, w // pw
+        x = latents.to(self.dtype).reshape(b, ch, gt, pt, gh, ph, gw, pw)
+        x = x.permute(0, 2, 4, 6, 1, 3, 5, 7).reshape(b, gt * gh * gw, ch * pt * ph * pw)
+        wgt = self.patch_embedding.weight.reshape(c.dim, -1).to(self.dtype)
+        return F.linear(x, wgt, self.patch_embedding.bias.to(self.dtype))
+
+    def forward(self, latents, timestep, text_embeds, attn_kwargs=None):
+        c = self.cfg
+        attn_kwargs = dict(attn_kwargs or {})
+        collect = bool(attn_kwargs.get("collect_mask", False))
+        b, _, t, h, w = latents.shape
+        pt, ph, pw = c.patch_size
+        gt, gh, gw = t // pt, h // ph, w // pw
+
+        x = self._patchify(latents)
+        ce = self.condition_embedder
+        ctx = ce.text_embedder(text_embeds.to(self.dtype))
+        temb = ce.time_embedder(timestep)
+        temb6 = ce.time_proj(F.silu(temb)).reshape(b, 6, c.dim)
+
+        cos, sin = self._rope_tables((gt, gh, gw), latents.device)
+        if self.token_perm is not None:
+            x = x.index_select(1, self._perm_idx)
+
+        auxes = []
+        for i, blk in enumerate(self.blocks):
+            x, aux = blk(x, ctx, temb6, cos, sin, self.attention_fn,
+                         dict(attn_kwargs, layer_index=i))
+            if aux is not None:
+                auxes.append(aux)
+
+        e = (self.scale_shift_table + temb[:, None, :]).float()
+        shift, scale = e[:, 0:1], e[:, 1:2]
+        xh = _layer_norm(x, c.eps) * (1 + scale) + shift
+        out = self.proj_out(xh.to(self.dtype).float())
+        if self.token_perm is not None:
+            out = out.index_select(1, self._inv_idx)
+        out = out.reshape(b, gt, gh, gw, pt, ph, pw, c.out_channels)
+        out = out.permute(0, 7, 1, 4, 2, 5, 3, 6).reshape(b, c.out_channels, t, h, w)
+        if collect:
+            return out, torch.stack(auxes)
+        return out

@@ -1,0 +1,103 @@
+"""Wan denoising loop: 8-step flow UniPC with optional ASA mask reuse.
+
+Counterpart of ``blade/sampling/pipeline.py`` (Wan half, CFG 1: the
+distilled sampler's setting).  PyTorch runs eagerly, so the loop is a host
+loop over steps; ``wan_stepper`` and ``wan_stepper_reuse`` expose the same
+per-step decomposition as the JAX package, and ``sample_wan`` is their fold.
+
+``model_fn(latents, timestep, text_embeds, generator, masks=None,
+collect_mask=False) -> velocity`` (or ``(velocity, masks)`` when
+collecting).  Step ``i`` hands the model ``fold_generator(generator, i)``.
+The solver state is f32 whatever the model's dtype.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from blade_torch.schedulers import unipc_flow as F
+from blade_torch.utils.rng import fold_generator
+
+__all__ = ["sample_wan", "wan_stepper", "wan_stepper_reuse"]
+
+ModelFn = Callable[..., torch.Tensor]
+
+
+def _timestep(sched, i, x):
+    return torch.full((x.shape[0],), float(sched.timesteps[i]), dtype=torch.float32,
+                      device=x.device)
+
+
+def wan_stepper(model_fn: ModelFn, *, num_steps: int = 8, flow_shift: float = 3.0):
+    """``(init, step)``: ``step(state, i, text_embeds, generator)`` is one
+    UniPC step."""
+    sched = F.make_flow_unipc_schedule(num_steps, flow_shift=flow_shift)
+
+    def init(noise):
+        return F.unipc_init(noise.float())
+
+    def step(state, i, text_embeds, generator):
+        t = _timestep(sched, i, state.x)
+        v = model_fn(state.x, t, text_embeds, fold_generator(generator, i))
+        return F.unipc_step(sched, state, v.float(), i)
+
+    return init, step
+
+
+def wan_stepper_reuse(model_fn: ModelFn, *, num_steps: int = 8, flow_shift: float = 3.0):
+    """``(init, refresh, reuse)``: ``refresh`` predicts the per-layer ASA
+    masks at step ``i`` alongside the velocity and returns them;
+    ``reuse(state, masks, i, ...)`` replays them, skipping the predictor."""
+    sched = F.make_flow_unipc_schedule(num_steps, flow_shift=flow_shift)
+
+    def init(noise):
+        return F.unipc_init(noise.float())
+
+    def refresh(state, i, text_embeds, generator):
+        t = _timestep(sched, i, state.x)
+        v, masks = model_fn(state.x, t, text_embeds, fold_generator(generator, i),
+                            collect_mask=True)
+        return F.unipc_step(sched, state, v.float(), i), masks
+
+    def reuse(state, masks, i, text_embeds, generator):
+        t = _timestep(sched, i, state.x)
+        v = model_fn(state.x, t, text_embeds, fold_generator(generator, i), masks=masks)
+        return F.unipc_step(sched, state, v.float(), i)
+
+    return init, refresh, reuse
+
+
+def sample_wan(
+    model_fn: ModelFn,
+    noise: torch.Tensor,
+    text_embeds: torch.Tensor,
+    *,
+    generator: torch.Generator,
+    num_steps: int = 8,
+    flow_shift: float = 3.0,
+    mask_refresh_every: int = 0,
+) -> torch.Tensor:
+    """Flow-matching sampling for Wan: noise -> clean latents (f32).
+
+    ``mask_refresh_every > 1`` reuses the per-layer ASA masks: predicted on
+    steps ``i % n == 0`` (the model's ``collect_mask`` protocol) and
+    replayed in between.  0/1 = off.
+    """
+    if mask_refresh_every and mask_refresh_every > 1:
+        init, refresh, reuse = wan_stepper_reuse(model_fn, num_steps=num_steps,
+                                                 flow_shift=flow_shift)
+        state, masks = init(noise), None
+        for i in range(num_steps):
+            if i % mask_refresh_every == 0:
+                state, masks = refresh(state, i, text_embeds, generator)
+            else:
+                state = reuse(state, masks, i, text_embeds, generator)
+        return state.x
+
+    init, step = wan_stepper(model_fn, num_steps=num_steps, flow_shift=flow_shift)
+    state = init(noise)
+    for i in range(num_steps):
+        state = step(state, i, text_embeds, generator)
+    return state.x
