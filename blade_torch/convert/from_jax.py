@@ -10,6 +10,11 @@ dicts (diffusers key layout), with numpy only.
   ``blade/convert/vae_convert.py::fake_torch_state_dict`` for the Wan VAE
   (the decode half the port runs: ``decoder.*`` and ``post_quant_conv.*``).
 
+* :func:`wan_lora_factors` maps ``blade/training/lora.py``'s LoRA factor
+  tree over a flax ``WanModel`` onto the port's adapter dict
+  (``training/lora.py``), permuting the ``b`` columns of ``attn1.to_q`` /
+  ``to_k`` into the port's stored (de-interleaved) row order.
+
 Trees are nested dicts of arrays, optionally under a top-level ``"params"``.
 """
 
@@ -19,7 +24,8 @@ from typing import Dict, Mapping
 
 import numpy as np
 
-__all__ = ["wan_transformer_state_dict", "wan_vae_state_dict", "to_torch"]
+__all__ = ["wan_transformer_state_dict", "wan_vae_state_dict", "wan_lora_factors",
+           "to_torch"]
 
 
 def _tree(params: Mapping) -> Mapping:
@@ -79,6 +85,36 @@ def wan_transformer_state_dict(params: Mapping, num_layers: int) -> Dict[str, np
         _lin(sd, f"{b}.ffn.net.0.proj", lp["ffn"]["Dense_0"])
         _lin(sd, f"{b}.ffn.net.2", lp["ffn"]["Dense_1"])
     return sd
+
+
+def wan_lora_factors(lora: Mapping, num_layers: int, num_heads: int) -> Dict[str, np.ndarray]:
+    """flax LoRA tree (``init_lora`` over ``WanModel`` params) -> the port's
+    factors ``{"blocks.{i}.{attn}.{proj}.a": [in, r], ".b": [r, out]}``.
+
+    An unrolled tree (``blocks_{i}``) or a scanned one with stacked
+    ``[L, ...]`` factors gives each block its own pair; a scanned tree whose
+    factors have no layer axis (one pair shared by all layers) gives every
+    block that pair.  ``attn1.to_q``/``to_k`` get ``b[:, perm]``, perm the
+    ``deinterleave_perm`` that ``PermutedLinear`` applies to their rows.
+    """
+    from blade_torch.models.layers import deinterleave_perm
+
+    p = _tree(lora)
+    out: Dict[str, np.ndarray] = {}
+    for i in range(num_layers):
+        lp = p["blocks"] if "blocks" in p else p[f"blocks_{i}"]
+        for attn in ("attn1", "attn2"):
+            for proj in ("to_q", "to_k", "to_v", "to_out"):
+                node = lp[attn][proj]["kernel"]
+                a, b = (np.asarray(node[f], np.float32) for f in ("a", "b"))
+                if a.ndim == 3:  # stacked over layers
+                    a, b = a[i], b[i]
+                if attn == "attn1" and proj in ("to_q", "to_k"):
+                    b = b[:, deinterleave_perm(num_heads, b.shape[1] // num_heads)]
+                name = f"blocks.{i}.{attn}.{proj}" + (".0" if proj == "to_out" else "")
+                out[f"{name}.a"] = np.ascontiguousarray(a)
+                out[f"{name}.b"] = np.ascontiguousarray(b)
+    return out
 
 
 def _flatten(tree: Mapping, prefix=()):

@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
 All sources under ``blade_torch/csrc/`` compile with ``nvcc`` for ``sm_90a``
-into ONE shared library with a plain C interface, loaded with ``ctypes``.
+(one ``nvcc`` a source, in parallel) and link into ONE shared library with a
+plain C interface, loaded with ``ctypes``.
 The build runs at first use (never at import), writes into
 ``build/blade_torch_kernels/`` at the repository root, and names the library
 by a hash of the sources and flags so a stale build is never loaded.
@@ -53,6 +54,17 @@ def _source_hash(sources: Sequence[Path]) -> str:
     return h.hexdigest()[:16]
 
 
+def _run_checked(procs) -> None:
+    """Wait for every ``(cmd, Popen)``; raise on the first failure."""
+    failed = None
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = (f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+    if failed:
+        raise RuntimeError(failed)
+
+
 def _build() -> Path:
     sources = sorted(CSRC.glob("*.cu"))
     headers = sorted(CSRC.glob("*.cuh"))
@@ -60,18 +72,26 @@ def _build() -> Path:
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Write to a temporary name and rename: concurrent builders never load a
-    # half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib_path)
+    nvcc = _nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    # One nvcc per source, all started together, into a private directory;
+    # then one link.  The library is written to a temporary name and
+    # renamed, so a concurrent build never loads a half-written file.
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        procs = []
+        objs = []
+        for src in sources:
+            obj = os.path.join(work, src.stem + ".o")
+            cmd = [nvcc, *compile_flags, "-c", "-o", obj, str(src)]
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True)))
+            objs.append(obj)
+        _run_checked(procs)
+        tmp = os.path.join(work, "lib.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *objs]
+        _run_checked([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.PIPE, text=True))])
+        os.replace(tmp, lib_path)
     return lib_path
 
 
@@ -133,10 +153,7 @@ def reset_launch_counts() -> None:
 
 def check_inputs(fn: str, *tensors, dtype) -> None:
     """Raise unless every tensor is a contiguous, 16-byte aligned CUDA tensor
-    of ``dtype`` on one device, with no gradient required (the kernels are
-    forward-only)."""
-    import torch
-
+    of ``dtype`` on one device."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or not t.is_cuda:
@@ -147,10 +164,6 @@ def check_inputs(fn: str, *tensors, dtype) -> None:
             raise ValueError(f"{fn}: inputs must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{fn}: inputs must be 16-byte aligned")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{fn}: the CUDA kernels are forward-only; run under "
-            "torch.no_grad() (backward kernels are not ported yet)")
 
 
 def cuda_stream(device) -> int:

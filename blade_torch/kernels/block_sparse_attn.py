@@ -1,16 +1,25 @@
-"""Flash attention, dense and block-sparse, forward only.
+"""Flash attention, dense and block-sparse, with their backward passes.
 
-Counterpart of ``blade/kernels/block_sparse_attn.py``'s public forward API:
+Counterpart of ``blade/kernels/block_sparse_attn.py``'s public API:
 ``flash_attention``, ``flash_attention_wide_v`` and
-``block_sparse_attention``.  On the card each launches the kernels of
-``csrc/flash_attn.cu`` (bf16 in, f32 accumulate, ``(out, lse)`` out); CPU
-tensors take the plain versions in ``kernels/ref_attention.py``.
+``block_sparse_attention``.  On the card the forwards launch the kernels of
+``csrc/flash_attn.cu`` (bf16 in, f32 accumulate, ``(out, lse)`` out) and
+the backwards those of ``csrc/flash_attn_bwd.cu``; CPU tensors take the
+plain versions in ``kernels/ref_attention.py``.
+
+``flash_attention`` and ``block_sparse_attention`` are differentiable
+through one ``torch.autograd.Function``, the counterpart of JAX's
+``_attn_with_lse`` custom VJP: the forward saves ``q, k, v, out, lse`` and
+the mask, and the backward takes the cotangents of BOTH outputs (the LSE
+merge of ASA's branches feeds every branch an LSE cotangent).
+``flash_attention_wide_v`` (the mask predictor) is forward-only, as the
+JAX predictor runs under ``stop_gradient``.
 
 Shapes: ``[B, H, L, D]``; ``Lq`` and ``Lk`` may be ragged (no padding is
-materialised: the kernels mask keys past ``Lk`` themselves).  The sparse
-mask is bool ``[B, H, ceil(Lq/128), ceil(Lk/128)]``; a row with no selected
-block gives out 0 and lse -1e30.  The backward kernels are not ported yet,
-so CUDA inputs that require grad raise.
+materialised: the kernels mask keys past ``Lk`` and rows past ``Lq``
+themselves).  The sparse mask is bool ``[B, H, ceil(Lq/128),
+ceil(Lk/128)]``; a row with no selected block gives out 0 and lse -1e30,
+and no gradient.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ from blade_torch.attention.masks import mask_to_block_lists
 from blade_torch.kernels._build import CudaKernel, check_inputs, cuda_stream
 from blade_torch.kernels.pack import KV_BLOCK, pack_kv
 from blade_torch.kernels.ref_attention import (
+    attention_backward_reference,
     block_masked_attention,
     dense_attention_with_lse,
 )
@@ -40,6 +50,23 @@ _sparse_kernel = CudaKernel(
     "sparse_fwd", "bt_attn_sparse_fwd", "ppppppiiiiiiffp",
     source="blade_torch/csrc/flash_attn.cu",
     replaces="blade/kernels/block_sparse_attn.py:360",  # _sparse_fwd_rows_kernel
+)
+_BWD_SOURCE = "blade_torch/csrc/flash_attn_bwd.cu"
+_dense_dq_kernel = CudaKernel(
+    "dense_dq", "bt_attn_dense_dq", "ppppppppiiiiffp", source=_BWD_SOURCE,
+    replaces="blade/kernels/block_sparse_attn.py:147",  # _dense_dq_kernel
+)
+_dense_dkv_kernel = CudaKernel(
+    "dense_dkv", "bt_attn_dense_dkv", "pppppppppiiiiffp", source=_BWD_SOURCE,
+    replaces="blade/kernels/block_sparse_attn.py:184",  # _dense_dkv_kernel
+)
+_sparse_dq_kernel = CudaKernel(
+    "sparse_dq", "bt_attn_sparse_dq", "pppppppppiiiiiiffp", source=_BWD_SOURCE,
+    replaces="blade/kernels/block_sparse_attn.py:646",  # _sparse_dq_kernel
+)
+_sparse_dkv_kernel = CudaKernel(
+    "sparse_dkv", "bt_attn_sparse_dkv", "pppppppppppiiiiiiffp", source=_BWD_SOURCE,
+    replaces="blade/kernels/block_sparse_attn.py:758",  # _sparse_dkv_kernel
 )
 
 
@@ -69,6 +96,104 @@ def _check_qkv(q, k, v, same_dv: bool):
         raise ValueError("V must have Q's head dim here")
 
 
+def _sparse_cuda(q, k, v, mask, scale, bias):
+    check_inputs("block_sparse_attention", q, k, v, dtype=torch.bfloat16)
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    if d not in (64, 128):
+        raise ValueError(f"block_sparse_attention: the kernel takes d in "
+                         f"(64, 128), got {d}")
+    n_qt, n_kt = mask.shape[-2:]
+    idx, cnt = mask_to_block_lists(mask.reshape(b * h, n_qt, n_kt))
+    idx, cnt = idx.contiguous(), cnt.contiguous()
+    kv = pack_kv(k.reshape(b * h, lk, d), v.reshape(b * h, lk, d))
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    _sparse_kernel(q.data_ptr(), kv.data_ptr(), idx.data_ptr(), cnt.data_ptr(),
+                   out.data_ptr(), lse.data_ptr(), b * h, lq, lk, d, n_qt,
+                   idx.shape[-1], float(scale), float(bias),
+                   cuda_stream(q.device))
+    return out, lse
+
+
+def _backward_cuda(q, k, v, out, lse, g_out, g_lse, mask, scale, bias,
+                   parts=("dq", "dkv")):
+    """The four backward kernels: ``delta = rowsum(dO * O)`` in torch (as
+    JAX computes it in XLA), then dQ and dK/dV, each in its own kernel.
+    ``parts`` picks which of the two kernels run (to time one alone); the
+    gradients of a kernel left out come back ``None``."""
+    g_out = g_out.to(q.dtype).contiguous()
+    g_lse = g_lse.float().contiguous()
+    check_inputs("attention backward", q, k, v, out, g_out, dtype=torch.bfloat16)
+    delta = (g_out.float() * out.float()).sum(dim=-1)
+    check_inputs("attention backward", lse, delta, g_lse, dtype=torch.float32)
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    if d not in (64, 128) or v.shape[-1] != d:
+        raise ValueError(f"attention backward: the kernels take d = dv in (64, 128) "
+                         f"(d={d}, dv={v.shape[-1]})")
+    dq = torch.empty_like(q) if "dq" in parts else None
+    dk, dv = (torch.empty_like(k), torch.empty_like(v)) if "dkv" in parts else (None, None)
+    stats = (lse.data_ptr(), delta.data_ptr(), g_lse.data_ptr())
+    stream = cuda_stream(q.device)
+    if mask is None:
+        if dq is not None:
+            _dense_dq_kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), g_out.data_ptr(),
+                             *stats, dq.data_ptr(), b * h, lq, lk, d, float(scale),
+                             float(bias), stream)
+        if dk is not None:
+            _dense_dkv_kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), g_out.data_ptr(),
+                              *stats, dk.data_ptr(), dv.data_ptr(), b * h, lq, lk, d,
+                              float(scale), float(bias), stream)
+        return dq, dk, dv
+    n_qt, n_kt = mask.shape[-2:]
+    m = mask.reshape(b * h, n_qt, n_kt)
+    if dq is not None:
+        idx, cnt = (t.contiguous() for t in mask_to_block_lists(m))
+        kv = pack_kv(k.reshape(b * h, lk, d), v.reshape(b * h, lk, d))
+        _sparse_dq_kernel(q.data_ptr(), kv.data_ptr(), g_out.data_ptr(), *stats,
+                          idx.data_ptr(), cnt.data_ptr(), dq.data_ptr(), b * h, lq, lk, d,
+                          n_qt, idx.shape[-1], float(scale), float(bias), stream)
+    if dk is not None:
+        t_idx, t_cnt = (t.contiguous() for t in mask_to_block_lists(m.transpose(-1, -2)))
+        _sparse_dkv_kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), g_out.data_ptr(),
+                           *stats, t_idx.data_ptr(), t_cnt.data_ptr(), dk.data_ptr(),
+                           dv.data_ptr(), b * h, lq, lk, d, n_kt, t_idx.shape[-1],
+                           float(scale), float(bias), stream)
+    return dq, dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    """``(out, lse)`` of dense (``mask=None``) or block-sparse attention,
+    differentiable in ``q, k, v`` through both outputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, scale, bias):
+        if q.is_cuda:
+            out, lse = (_dense_cuda(q, k, v, scale, bias) if mask is None
+                        else _sparse_cuda(q, k, v, mask, scale, bias))
+        elif mask is None:
+            out, lse = dense_attention_with_lse(q, k, v, scale=scale, bias=bias)
+        else:
+            out, lse = block_masked_attention(q, k, v, mask, scale=scale,
+                                              block_k=KV_BLOCK, bias=bias)
+        ctx.save_for_backward(q, k, v, out, lse, mask)
+        ctx.scale, ctx.bias = scale, bias
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
+        q, k, v, out, lse, mask = ctx.saved_tensors
+        if q.is_cuda:
+            dq, dk, dv = _backward_cuda(q, k, v, out, lse, g_out, g_lse, mask,
+                                        ctx.scale, ctx.bias)
+        else:
+            dq, dk, dv = attention_backward_reference(
+                q, k, v, out, lse, g_out, g_lse, block_mask=mask, block_k=KV_BLOCK,
+                scale=ctx.scale, bias=ctx.bias)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -77,13 +202,12 @@ def flash_attention(
     scale: Optional[float] = None,
     bias: float = 0.0,
 ):
-    """Dense flash attention with LSE: ``(out [B,H,Lq,D], lse [B,H,Lq])``."""
+    """Dense flash attention with LSE: ``(out [B,H,Lq,D], lse [B,H,Lq])``,
+    differentiable in ``q, k, v``."""
     _check_qkv(q, k, v, same_dv=True)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if not q.is_cuda:
-        return dense_attention_with_lse(q, k, v, scale=scale, bias=bias)
-    return _dense_cuda(q, k, v, scale, bias)
+    return _Attention.apply(q, k, v, None, float(scale), float(bias))
 
 
 def flash_attention_wide_v(
@@ -96,11 +220,15 @@ def flash_attention_wide_v(
 ):
     """Dense flash whose V width ``Dv`` (a multiple of 128) is independent of
     Q/K's: the sum predictor's one-hot block-pooling V.  Returns
-    ``(out [B,H,Lq,Dv], lse [B,H,Lq])``."""
+    ``(out [B,H,Lq,Dv], lse [B,H,Lq])``.  Forward-only (the predictor runs
+    without gradient)."""
     _check_qkv(q, k, v, same_dv=False)
     if v.shape[3] % 128:
         raise ValueError(f"flash_attention_wide_v: Dv={v.shape[3]} must be a "
                          "multiple of 128")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention_wide_v is forward-only: call it "
+                           "under torch.no_grad()")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if not q.is_cuda:
@@ -117,7 +245,8 @@ def block_sparse_attention(
     scale: Optional[float] = None,
     bias: float = 0.0,
 ):
-    """Block-sparse flash attention with LSE over 128x128 blocks.
+    """Block-sparse flash attention with LSE over 128x128 blocks,
+    differentiable in ``q, k, v``.
 
     ``block_mask``: bool ``[B, H, ceil(Lq/128), ceil(Lk/128)]``; ``None``
     means dense.  Returns ``(out [B,H,Lq,D], lse [B,H,Lq])``.
@@ -131,22 +260,8 @@ def block_sparse_attention(
     if tuple(block_mask.shape) != (b, h, n_qt, n_kt):
         raise ValueError(f"block_mask {tuple(block_mask.shape)} must be "
                          f"{(b, h, n_qt, n_kt)}")
+    if block_mask.device != q.device:
+        raise ValueError(f"block_mask is on {block_mask.device}, q on {q.device}")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    if not q.is_cuda:
-        return block_masked_attention(q, k, v, block_mask, scale=scale,
-                                      block_k=KV_BLOCK, bias=bias)
-    check_inputs("block_sparse_attention", q, k, v, dtype=torch.bfloat16)
-    if d not in (64, 128):
-        raise ValueError(f"block_sparse_attention: the kernel takes d in "
-                         f"(64, 128), got {d}")
-    idx, cnt = mask_to_block_lists(block_mask.reshape(b * h, n_qt, n_kt))
-    idx, cnt = idx.contiguous(), cnt.contiguous()
-    kv = pack_kv(k.reshape(b * h, lk, d), v.reshape(b * h, lk, d))
-    out = torch.empty_like(q)
-    lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
-    _sparse_kernel(q.data_ptr(), kv.data_ptr(), idx.data_ptr(), cnt.data_ptr(),
-                   out.data_ptr(), lse.data_ptr(), b * h, lq, lk, d, n_qt,
-                   idx.shape[-1], float(scale), float(bias),
-                   cuda_stream(q.device))
-    return out, lse
+    return _Attention.apply(q, k, v, block_mask, float(scale), float(bias))

@@ -8,7 +8,10 @@ Counterpart of ``blade/kernels/norm_rope.py::norm_rope_heads``:
 rotate-half equal to the checkpoint's interleaved-pair RoPE.
 
 The CUDA kernel is ``csrc/norm_rope.cu``; CPU tensors take the plain
-version ``_norm_rope_reference``.  The JAX package's ``heads_pack`` /
+version ``_norm_rope_reference``.  On the card the kernel's gradient
+(``dx``, ``dscale``) is autograd through the plain version, recomputed in
+the backward, exactly as JAX's custom VJP takes ``jax.vjp`` of its XLA
+reference (there is no Pallas backward kernel to port).  The JAX package's ``heads_pack`` /
 ``heads_unpack`` relayouts are not part of this lane (no model calls them).
 """
 
@@ -46,6 +49,41 @@ def _norm_rope_reference(x, scale, cos, sin, num_heads, eps):
     return (y * cos_f + rolled * sin_f).to(x.dtype)
 
 
+def _norm_rope_cuda(x, scale, cos, sin, num_heads, eps):
+    check_inputs("norm_rope_heads", x, dtype=torch.bfloat16)
+    check_inputs("norm_rope_heads", scale, cos, sin, dtype=torch.float32)
+    b, s, dim = x.shape
+    d = dim // num_heads
+    if dim % 8 or d % 8 or dim // 8 > 1024:
+        raise ValueError(f"norm_rope_heads: kernel needs D % 8 == 0, d % 8 == 0 "
+                         f"and D <= 8192 (D={dim}, d={d})")
+    out = torch.empty((b, num_heads, s, d), dtype=x.dtype, device=x.device)
+    _norm_rope_kernel(x.data_ptr(), scale.data_ptr(), cos.data_ptr(),
+                      sin.data_ptr(), out.data_ptr(), b, s, dim, num_heads,
+                      float(eps), cuda_stream(x.device))
+    return out
+
+
+class _NormRope(torch.autograd.Function):
+    """The CUDA kernel forward; backward = vjp of the plain version."""
+
+    @staticmethod
+    def forward(ctx, x, scale, cos, sin, num_heads, eps):
+        ctx.save_for_backward(x, scale, cos, sin)
+        ctx.num_heads, ctx.eps = num_heads, eps
+        return _norm_rope_cuda(x, scale, cos, sin, num_heads, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, cos, sin = ctx.saved_tensors
+        with torch.enable_grad():
+            xr = x.detach().requires_grad_(True)
+            sr = scale.detach().requires_grad_(True)
+            out = _norm_rope_reference(xr, sr, cos, sin, ctx.num_heads, ctx.eps)
+            dx, dscale = torch.autograd.grad(out, (xr, sr), g)
+        return dx, dscale, None, None, None, None
+
+
 def norm_rope_heads(
     x: torch.Tensor,
     scale: torch.Tensor,
@@ -56,7 +94,8 @@ def norm_rope_heads(
     eps: float = 1e-6,
 ) -> torch.Tensor:
     """``x [B, S, D]`` (bf16 on the card), ``scale [D]`` f32, ``cos``/``sin``
-    ``[S, d/2]`` f32 -> ``[B, H, S, d]`` in ``x``'s dtype."""
+    ``[S, d/2]`` f32 -> ``[B, H, S, d]`` in ``x``'s dtype; differentiable in
+    ``x`` and ``scale``."""
     b, s, dim = x.shape
     if dim % num_heads or scale.shape != (dim,):
         raise ValueError(f"norm_rope_heads: bad shapes x {tuple(x.shape)}, "
@@ -66,13 +105,4 @@ def norm_rope_heads(
         raise ValueError(f"norm_rope_heads: tables must be [{s}, {d // 2}]")
     if not x.is_cuda:
         return _norm_rope_reference(x, scale, cos, sin, num_heads, eps)
-    check_inputs("norm_rope_heads", x, dtype=torch.bfloat16)
-    check_inputs("norm_rope_heads", scale, cos, sin, dtype=torch.float32)
-    if dim % 8 or d % 8 or dim // 8 > 1024:
-        raise ValueError(f"norm_rope_heads: kernel needs D % 8 == 0, d % 8 == 0 "
-                         f"and D <= 8192 (D={dim}, d={d})")
-    out = torch.empty((b, num_heads, s, d), dtype=x.dtype, device=x.device)
-    _norm_rope_kernel(x.data_ptr(), scale.data_ptr(), cos.data_ptr(),
-                      sin.data_ptr(), out.data_ptr(), b, s, dim, num_heads,
-                      float(eps), cuda_stream(x.device))
-    return out
+    return _NormRope.apply(x, scale, cos, sin, num_heads, float(eps))

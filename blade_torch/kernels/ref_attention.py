@@ -3,6 +3,7 @@
 Counterpart of ``blade/kernels/ref_attention.py``.  All functions take
 ``[B, H, L, D]`` and return ``(out, lse)`` with ``lse`` the natural-log row
 log-sum-exp of the scaled scores (f32).  Scores are computed in f32.
+``attention_backward_reference`` is the plain backward of both forwards.
 
 Unlike the JAX reference these run chunked over query rows, so they also
 serve at main-path shapes on the card: a full ``[12, 32760, 32760]`` f32
@@ -20,6 +21,7 @@ import torch
 __all__ = [
     "dense_attention_with_lse",
     "block_masked_attention",
+    "attention_backward_reference",
     "merge_attention",
     "mean_pool_kv",
     "NEG_INF",
@@ -110,6 +112,63 @@ def block_masked_attention(
         lse = (m + torch.log(l_safe))[..., 0]
         lses.append(torch.where(l[..., 0] == 0, torch.full_like(lse, NEG_INF), lse))
     return torch.cat(outs, dim=-2), torch.cat(lses, dim=-1)
+
+
+def attention_backward_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    g_out: torch.Tensor,
+    g_lse: torch.Tensor,
+    *,
+    block_mask: Optional[torch.Tensor] = None,
+    block_k: int = 128,
+    scale: float,
+    bias: float = 0.0,
+):
+    """Gradients ``(dq, dk, dv)`` of ``(out, lse)`` from the forward's saved
+    statistics, with the backward kernels' formula
+    (``blade/kernels/block_sparse_attn.py:147-225``)::
+
+        delta = rowsum(g_out * out)
+        p     = exp(s * scale + bias - lse)
+        ds    = p * (g_out . v^T + g_lse - delta)
+        dq    = scale * ds . k,   dk = scale * ds^T . q,   dv = p^T . g_out
+
+    ``block_mask`` (bool ``[B, H, ceil(Lq/128), ceil(Lk/block_k)]``, or
+    ``None`` for dense) zeroes ``p`` on skipped blocks; a row whose ``lse``
+    is ``NEG_INF`` (empty) contributes nothing.  f32 math, chunked over
+    query rows like the forwards; the results come back in the inputs'
+    dtypes.
+    """
+    lq, lk = q.shape[-2], k.shape[-2]
+    lead = math.prod(q.shape[:-2])
+    kf, vf = k.float(), v.float()
+    delta = (g_out.float() * out.float()).sum(dim=-1)
+    rest = g_lse.float() - delta
+    dk = torch.zeros(kf.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(vf.shape, dtype=torch.float32, device=v.device)
+    dqs = []
+    step = _rows_per_chunk(lead, lk, 128)
+    for r0 in range(0, lq, step):
+        qc = q[..., r0:r0 + step, :].float()
+        gc = g_out[..., r0:r0 + step, :].float()
+        rows = qc.shape[-2]
+        live = (lse[..., r0:r0 + step] > NEG_INF / 2)[..., None]
+        if block_mask is not None:
+            bm = block_mask[..., r0 // 128:-(-(r0 + rows) // 128), :]
+            tok = bm.repeat_interleave(128, dim=-2).repeat_interleave(block_k, dim=-1)
+            live = live & tok[..., :rows, :lk]
+        s = torch.matmul(qc, kf.transpose(-1, -2)) * scale + bias
+        p = torch.exp(s - lse[..., r0:r0 + step, None].float())
+        p = torch.where(live, p, torch.zeros_like(p))
+        ds = p * (torch.matmul(gc, vf.transpose(-1, -2)) + rest[..., r0:r0 + step, None])
+        dqs.append((torch.matmul(ds, kf) * scale).to(q.dtype))
+        dk += torch.matmul(ds.transpose(-1, -2), qc) * scale
+        dv += torch.matmul(p.transpose(-1, -2), gc)
+    return torch.cat(dqs, dim=-2), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def mean_pool_kv(x: torch.Tensor, factor: int) -> torch.Tensor:

@@ -14,7 +14,11 @@ Self-attention q/k run with the ``deinterleave_perm`` channel permutation
 folded into ``to_q``/``to_k`` and ``norm_q``/``norm_k`` once at load time, so
 ``norm_rope_heads`` takes the relayout-free rotate-half form.  With
 ``token_perm`` set (ASA), tokens are permuted once after patchify and
-restored once at ``proj_out``.  The I2V image branch is not ported yet.
+restored once at ``proj_out``.  ``remat=True`` recomputes each block in the
+backward (``torch.utils.checkpoint``, the counterpart of flax ``nn.remat``).
+The model runs under ``torch.func.functional_call`` with a substituted
+parameter dict (TDM's three roles over one base), and tolerates a base held
+in bf16.  The I2V image branch is not ported yet.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from blade_torch.kernels.norm_rope import norm_rope_heads
 from blade_torch.models.layers import (
@@ -88,9 +93,9 @@ class WanSelfAttention(nn.Module):
     def forward(self, x, cos, sin, attention_fn, attn_kwargs):
         c = self.c
         b, l, _ = x.shape
-        q = norm_rope_heads(self.to_q(x), self.norm_q.weight, cos, sin,
+        q = norm_rope_heads(self.to_q(x), self.norm_q.weight.float(), cos, sin,
                             c.num_heads, eps=c.eps)
-        k = norm_rope_heads(self.to_k(x), self.norm_k.weight, cos, sin,
+        k = norm_rope_heads(self.to_k(x), self.norm_k.weight.float(), cos, sin,
                             c.num_heads, eps=c.eps)
         v = self.to_v(x).reshape(b, l, c.num_heads, c.head_dim).transpose(1, 2).contiguous()
         out = attention_fn(q, k, v, **attn_kwargs)
@@ -152,11 +157,19 @@ class WanBlock(nn.Module):
         h = _layer_norm(x, c.eps) * (1 + scale1) + shift1
         attn, aux = self.attn1(h.to(dtype), cos, sin, attention_fn, attn_kwargs)
         x = x + (gate1 * attn.float()).to(dtype)
-        norm_x = self.norm2(x.float())
+        norm_x = x.float()
+        if c.cross_attn_norm:
+            n2 = self.norm2
+            norm_x = F.layer_norm(norm_x, (c.dim,), n2.weight.float(), n2.bias.float(),
+                                  n2.eps)
         x = x + self.attn2(norm_x.to(dtype), context).to(dtype)
         h = _layer_norm(x, c.eps) * (1 + scale2) + shift2
         x = x + (gate2 * self.ffn(h.to(dtype)).float()).to(dtype)
         return x, aux
+
+
+def _call_block(blk, state, *args):
+    return torch.func.functional_call(blk, state, args)
 
 
 class _TextEmbedder(nn.Module):
@@ -190,10 +203,12 @@ class WanModel(nn.Module):
 
     def __init__(self, cfg: WanConfig, *, dtype=torch.bfloat16,
                  attention_fn: Callable = dense_attention_fn,
-                 token_perm: Optional[Tuple[Any, Any]] = None, device=None):
+                 token_perm: Optional[Tuple[Any, Any]] = None, remat: bool = False,
+                 device=None):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
+        self.remat = remat
         self.attention_fn = attention_fn
         self.token_perm = token_perm
         if token_perm is not None:
@@ -263,9 +278,22 @@ class WanModel(nn.Module):
             x = x.index_select(1, self._perm_idx)
 
         auxes = []
+        remat = self.remat and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
-            x, aux = blk(x, ctx, temb6, cos, sin, self.attention_fn,
-                         dict(attn_kwargs, layer_index=i))
+            args = (x, ctx, temb6, cos, sin, self.attention_fn,
+                    dict(attn_kwargs, layer_index=i))
+            if remat:
+                # The block's tensors go in explicitly: under an outer
+                # functional_call the recompute must see the substituted
+                # parameters, which are gone from the module by then.
+                state = dict(blk.named_parameters())
+                state.update(blk.named_buffers())
+                # Every random draw comes from an explicit generator, so the
+                # global RNG state needs no stashing.
+                x, aux = checkpoint(_call_block, blk, state, *args,
+                                    use_reentrant=False, preserve_rng_state=False)
+            else:
+                x, aux = blk(*args)
             if aux is not None:
                 auxes.append(aux)
 

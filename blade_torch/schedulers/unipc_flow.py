@@ -9,6 +9,9 @@ model predicts ``v = eps - x0``; ``lambda = log((1 - sigma) / sigma)``.
 The schedule tables are numpy (copied from the JAX package).  The step
 index is a host integer, so each step's scalar coefficients are computed
 on the host in float32 and applied to f32 tensors.
+
+The flow-matching training half (``flow_training_sigmas`` and the four
+conversions TDM uses) looks sigmas up per sample by integer timestep.
 """
 
 from __future__ import annotations
@@ -26,6 +29,11 @@ __all__ = [
     "unipc_init",
     "unipc_step",
     "euler_step",
+    "flow_training_sigmas",
+    "flow_add_noise",
+    "flow_pred_x0",
+    "flow_pred_eps",
+    "flow_renoise",
 ]
 
 _LAMBDA_CLAMP = 60.0  # expm1(-60) == -1 in f32; keeps terminal sigma=0 finite
@@ -76,6 +84,48 @@ def make_flow_unipc_schedule(
         lower_order_final=lower_order_final,
         use_corrector=use_corrector,
     )
+
+
+def flow_training_sigmas(num_train_timesteps: int = 1000,
+                         flow_shift: float = 3.0) -> np.ndarray:
+    """Per-integer-timestep sigma table for TDM training:
+    ``sigma_table[t] = shifted(t / T)`` (f32 numpy), the direct form of the
+    reference's nearest-timestep lookup after ``set_timesteps(1000)``."""
+    t = np.arange(num_train_timesteps, dtype=np.float64) / num_train_timesteps
+    return _shift_sigmas(t, flow_shift).astype(np.float32)
+
+
+def _sig(table, t: torch.Tensor, ndim: int) -> torch.Tensor:
+    vals = torch.as_tensor(table, device=t.device)[t.long()]
+    return vals.reshape(vals.shape + (1,) * (ndim - vals.dim()))
+
+
+def flow_add_noise(sigma_table, x0, noise, t):
+    """``x_t = (1 - sigma_t) x0 + sigma_t noise``."""
+    s = _sig(sigma_table, t, x0.dim())
+    return (1.0 - s) * x0 + s * noise
+
+
+def flow_pred_x0(sigma_table, v, x_t, t):
+    """``x0 = x_t - sigma_t v``."""
+    s = _sig(sigma_table, t, v.dim())
+    return x_t - s * v
+
+
+def flow_pred_eps(sigma_table, x0, x_t, t):
+    """``eps = (x_t - (1 - sigma) x0) / sigma``."""
+    s = _sig(sigma_table, t, x0.dim())
+    return (x_t - (1.0 - s) * x0) / torch.clamp(s, min=1e-6)
+
+
+def flow_renoise(sigma_table, x_t1, noise, t1, t2):
+    """Move from ``t1`` to a higher noise level ``t2`` without x0 (the
+    flow-matching analogue of the DDPM renoise)."""
+    s1 = _sig(sigma_table, t1, x_t1.dim())
+    s2 = _sig(sigma_table, t2, x_t1.dim())
+    ratio = (1.0 - s2) / (1.0 - s1)
+    beta = torch.sqrt(torch.clamp(s2 ** 2 - (ratio * s1) ** 2, min=0.0))
+    return ratio * x_t1 + beta * noise
 
 
 class UniPCState(NamedTuple):

@@ -165,11 +165,13 @@ def test_norm_rope_heads_matches_jax_fused_path():
 
 def test_cpu_tensors_take_the_plain_versions_without_launching():
     _build.reset_launch_counts()
-    q, k, v = (_t(a) for a in _qkv(12, 1, 1, 64, 64, 64))
-    flash_attention(q, k, v)
-    block_sparse_attention(q, k, v, torch.ones(1, 1, 1, 1, dtype=torch.bool))
-    pack_kv(k[0], v[0])
-    assert set(_build.KERNELS) == {"dense_fwd", "sparse_fwd", "pack_kv", "norm_rope"}
+    q, k, v = (_t(a).requires_grad_(True) for a in _qkv(12, 1, 1, 64, 64, 64))
+    outs = flash_attention(q, k, v) + block_sparse_attention(
+        q, k, v, torch.ones(1, 1, 1, 1, dtype=torch.bool))
+    sum(o.sum() for o in outs).backward()  # the backward too
+    pack_kv(k[0].detach(), v[0].detach())
+    assert set(_build.KERNELS) == {"dense_fwd", "sparse_fwd", "pack_kv", "norm_rope",
+                                   "dense_dq", "dense_dkv", "sparse_dq", "sparse_dkv"}
     assert all(kern.launches == 0 for kern in _build.KERNELS.values())
 
 
