@@ -1,27 +1,33 @@
-"""ASA: Adaptive block-Sparse Attention, energy lane.
+"""ASA: Adaptive block-Sparse Attention, energy and multilevel lanes.
 
 Counterpart of ``blade/attention/asa.py``:
 
   1. Gilbert-rearrange tokens so spatio-temporal neighbours share 128-blocks
-     (hoisted to the model when ``pre_arranged``).
-  2. Predict a per-(batch, head) boolean block mask from a subsampled
-     estimate of each key block's softmax mass (the "sum" predictor: flash
-     attention with a one-hot block-pooling V), then the energy mask.
-  3. Branch A: block-sparse flash attention over the mask.
-     Branch B: dense flash attention against ``sample_gap``-mean-pooled K/V
-     with a ``+log(sample_gap)`` score bias.
-  4. Exact LSE merge of the two branches, then restore the token order.
+     (hoisted to the model when ``pre_arranged``; text tokens stay behind
+     the video).
+  2. Predict per-(batch, head) block scores from a subsampled estimate of
+     each key block's softmax mass (the "sum" predictor: flash attention
+     with a one-hot block-pooling V).
+  3. Energy lane (training, Wan serving): the energy mask; branch A is
+     block-sparse flash attention over it, branch B dense flash attention
+     against ``sample_gap``-mean-pooled K/V with a ``+log(sample_gap)``
+     bias, merged exactly by LSE.
+     Multilevel lane (CogVideoX serving): the scores, mean-pooled to
+     ``multilevel_q_rows`` query rows, rank each row's key blocks into
+     levels {1, 2, 4, 8, 0} by percentile bands; the per-level lists drive
+     the multi-level kernel.
+  4. Restore the token order.
 
 Randomness (the predictor's token subsampling) comes from an explicit
-``torch.Generator``; the offsets can also be injected.  The multilevel lane
-and the "max" predictor are later slices of the port.
+``torch.Generator``; the offsets can also be injected.  The "max" predictor
+is a later slice of the port.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -32,9 +38,10 @@ from blade_torch.kernels.block_sparse_attn import (
     flash_attention,
     flash_attention_wide_v,
 )
+from blade_torch.kernels.multilevel_attn import fused_supported, multilevel_attention
 from blade_torch.kernels.ref_attention import merge_attention
 
-__all__ = ["ASAConfig", "predict_block_scores", "compute_mask",
+__all__ = ["ASAConfig", "predict_block_scores", "compute_mask", "compute_lists",
            "adaptive_sparse_attention", "asa_attention", "BLOCK"]
 
 BLOCK = 128  # token block of the masks: the sparse kernel's 128 x 128 tiles
@@ -43,20 +50,34 @@ ENERGY_THRESHOLD = 0.95
 
 @dataclasses.dataclass(frozen=True)
 class ASAConfig:
-    """Geometry + sparsity hyperparameters of the energy lane (video-only
-    tokens, as in Wan; the JAX config's multilevel and "max"-predictor
-    fields belong to lanes not ported yet)."""
+    """Geometry + sparsity hyperparameters of one model family (the JAX
+    config's "max"-predictor fields belong to a lane not ported yet)."""
 
     latent_width: int
     latent_height: int
     latent_frames: int
+    # Text tokens behind the video in the attention sequence (CogVideoX's
+    # joint attention); 0 for Wan.
+    text_length: int = 0
     sample_tokens_per_block: int = 16
     min_retain_ratio: float = 0.05
     max_retain_ratio: float = 0.1
     sample_gap: int = 15
+    mask_mode: str = "energy"  # "energy" | "multilevel"
+    mask_ratios: Optional[Dict[int, Tuple[float, float]]] = None
     # Tokens arrive already gilbert-arranged (the model permuted once after
     # patchify) -- skip the per-call permutes.
     pre_arranged: bool = False
+    # Query rows per multilevel mask row (128 or 256).
+    multilevel_q_rows: int = 128
+
+    @property
+    def video_tokens(self) -> int:
+        return self.latent_width * self.latent_height * self.latent_frames
+
+    @property
+    def seq_len(self) -> int:
+        return self.video_tokens + self.text_length
 
     def permutations(self):
         return gilbert.gilbert_permutations(
@@ -102,9 +123,45 @@ def predict_block_scores(
     return out.reshape(b, h, nq, tokens, nk).mean(dim=3).float()
 
 
+def _coarsen_scores(scores: torch.Tensor, cfg: ASAConfig) -> torch.Tensor:
+    """Mean-pool score rows to ``multilevel_q_rows`` granularity (the last
+    row edge-padded when the row count does not divide)."""
+    g = cfg.multilevel_q_rows // BLOCK
+    if g == 1:
+        return scores
+    nq = scores.shape[-2]
+    if nq % g:
+        last = scores[..., -1:, :]
+        scores = torch.cat([scores, last.expand(*scores.shape[:-2], g - nq % g,
+                                                scores.shape[-1])], dim=-2)
+    return scores.reshape(*scores.shape[:-2], -1, g, scores.shape[-1]).mean(dim=-2)
+
+
+def _fused_lane_supported(cfg: ASAConfig, q, k) -> bool:
+    return cfg.mask_mode == "multilevel" and fused_supported(
+        q.shape[-1], k.shape[2], q.element_size())
+
+
+def compute_lists(q, k, cfg: ASAConfig, *, generator=None, offsets=None):
+    """Per-level block lists for the multilevel lane, the mask artifact on
+    that lane: ``(idx [B, H, n_q, 4, cap], counts [B, H, n_q, 4])`` with
+    ``cap = ceil(n_k / 128) * 128``."""
+    scores = _coarsen_scores(
+        predict_block_scores(q, k, cfg, generator=generator, offsets=offsets), cfg)
+    n_kt = -(-k.shape[2] // BLOCK)
+    return M.multilevel_lists(scores, cfg.mask_ratios, cap=-(-n_kt // 128) * 128)
+
+
 def compute_mask(q, k, cfg: ASAConfig, *, generator=None, offsets=None):
-    """The boolean energy mask for (q, k), from the pooled score estimate."""
+    """The data-dependent mask for (q, k) from the pooled score estimate:
+    the boolean energy mask, or on the multilevel lane the int level mask
+    (at ``multilevel_q_rows`` granularity when the fused lane supports the
+    geometry, as in JAX)."""
     scores = predict_block_scores(q, k, cfg, generator=generator, offsets=offsets)
+    if cfg.mask_mode == "multilevel":
+        if _fused_lane_supported(cfg, q, k):
+            scores = _coarsen_scores(scores, cfg)
+        return M.multilevel_mask(scores, cfg.mask_ratios)
     return M.energy_mask(
         scores,
         min_retain_ratio=cfg.min_retain_ratio,
@@ -123,12 +180,16 @@ def adaptive_sparse_attention(
     mask: Optional[torch.Tensor] = None,
     offsets=None,
 ):
-    """Energy-lane ASA over already-arranged ``[B, H, L, D]``.
+    """ASA over already-arranged ``[B, H, L, D]``.
 
-    ``mask``: optional precomputed mask (cross-step reuse skips the
-    predictor).  Returns ``(out, sparsity)`` where sparsity is
-    ``1 - mask.mean() - 1/sample_gap``.
+    ``mask``: optional precomputed mask artifact (cross-step reuse skips the
+    predictor): the energy mask, or on the multilevel lane an ``(idx,
+    counts)`` lists tuple.  Returns ``(out,
+    sparsity)``: ``1 - mask.mean() - 1/sample_gap`` on the energy lane,
+    ``1 - sum over levels of band / L`` on the multilevel lane.
     """
+    if cfg.mask_mode == "multilevel":
+        return _multilevel_lane(q, k, v, cfg, mask, generator, offsets)
     if mask is None:
         mask = compute_mask(q, k, cfg, generator=generator, offsets=offsets)
     out1, lse1 = block_sparse_attention(q, k, v, mask)
@@ -150,6 +211,16 @@ def adaptive_sparse_attention(
     return out.to(q.dtype), sparsity
 
 
+def _multilevel_lane(q, k, v, cfg, lists, generator, offsets):
+    # multilevel_attention raises for geometries only the per-level lane covers
+    if lists is None:
+        lists = compute_lists(q, k, cfg, generator=generator, offsets=offsets)
+    out, _ = multilevel_attention(q, k, v, lists=tuple(lists), q_rows=cfg.multilevel_q_rows)
+    ratios = cfg.mask_ratios or M.DEFAULT_MASK_RATIOS
+    density = sum((hi - lo) / lv for lv, (lo, hi) in ratios.items() if lv != 0)
+    return out, 1.0 - density
+
+
 def asa_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -163,21 +234,25 @@ def asa_attention(
 ):
     """Full ASA: gilbert rearrange -> adaptive sparse attention -> restore.
 
-    ``q, k, v``: ``[B, H, video_tokens, D]``.  ``mask``/``return_mask``
+    ``q, k, v``: ``[B, H, text_length + video_tokens, D]`` with the text
+    segment first (``text_length == 0`` for Wan).  ``mask``/``return_mask``
     support cross-step mask reuse (masks live in arranged-token
-    coordinates).  Returns ``(out, sparsity[, mask])``.
+    coordinates; on the multilevel lane the artifact is the ``(idx,
+    counts)`` lists tuple).
+    Returns ``(out, sparsity[, mask])``.
     """
     rearrange = not cfg.pre_arranged
     if rearrange:
         perm, inv = cfg.permutations()
-        q = gilbert.rearrange_tokens(q, perm)
-        k = gilbert.rearrange_tokens(k, perm)
-        v = gilbert.rearrange_tokens(v, perm)
+        q = gilbert.rearrange_tokens(q, perm, cfg.text_length)
+        k = gilbert.rearrange_tokens(k, perm, cfg.text_length)
+        v = gilbert.rearrange_tokens(v, perm, cfg.text_length)
     if mask is None:
-        mask = compute_mask(q, k, cfg, generator=generator, offsets=offsets)
+        mask = (compute_lists if cfg.mask_mode == "multilevel" else compute_mask)(
+            q, k, cfg, generator=generator, offsets=offsets)
     out, sparsity = adaptive_sparse_attention(q, k, v, cfg, mask=mask)
     if rearrange:
-        out = gilbert.unrearrange_tokens(out, inv)
+        out = gilbert.unrearrange_tokens(out, inv, cfg.text_length)
     if return_mask:
         return out, sparsity, mask
     return out, sparsity

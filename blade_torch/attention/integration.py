@@ -6,17 +6,36 @@ collect_mask=...)`` for every self-attention.  The generator is folded with
 the layer index so each block draws fresh samples.  Where the flax model
 ``sow``s each layer's mask and ``extract_attn_aux`` stacks them, the port's
 ``WanModel`` stacks the masks its ``attention_fn`` returns to the same
-``[L, ...]`` contract.
+``[L, ...]`` contract.  The artifact is one mask tensor (energy lane, or
+an int level mask) or an ``(idx, counts)`` lists tuple (the multilevel
+lane); :func:`stack_masks` and :func:`layer_mask` handle both.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from blade_torch.attention.asa import ASAConfig, asa_attention
 from blade_torch.utils.rng import fold_generator, make_generator
 
-__all__ = ["make_asa_attention_fn", "asa_model_kwargs"]
+__all__ = ["make_asa_attention_fn", "asa_model_kwargs", "stack_masks", "layer_mask"]
+
+
+def stack_masks(per_layer):
+    """Per-layer artifacts -> one ``[L, ...]`` stack (a tuple of stacks for
+    lists tuples)."""
+    if isinstance(per_layer[0], (tuple, list)):
+        return tuple(torch.stack(parts) for parts in zip(*per_layer))
+    return torch.stack(per_layer)
+
+
+def layer_mask(masks, i: int):
+    """Layer ``i``'s artifact out of a :func:`stack_masks` stack."""
+    if isinstance(masks, (tuple, list)):
+        return tuple(m[i] for m in masks)
+    return masks[i]
 
 
 def asa_model_kwargs(asa_cfg: ASAConfig) -> dict:
@@ -40,7 +59,7 @@ def make_asa_attention_fn(asa_cfg: ASAConfig):
         if generator is None:
             generator = make_generator(0, q.device)
         gen = fold_generator(generator, layer_index)
-        mask = None if masks is None else masks[layer_index]
+        mask = None if masks is None else layer_mask(masks, layer_index)
         out, _, mask = asa_attention(q, k, v, asa_cfg, generator=gen, mask=mask,
                                      return_mask=True)
         out = out.to(q.dtype)

@@ -1,16 +1,17 @@
-"""Adaptive block-mask prediction for ASA, energy lane.
+"""Adaptive block-mask prediction for ASA: the energy and multilevel lanes.
 
 Counterpart of ``blade/attention/masks.py``: edge padding to whole blocks,
 per-(batch, head) token subsampling, the energy mask (smallest top-scoring
 set of key blocks reaching ``energy_threshold`` of each row's mass, clamped
 to ``[min_retain, max_retain] * n_k`` blocks, last two block rows and
-columns forced on) and the mask -> ascending block lists conversion that the
-sparse kernel consumes.  The multilevel lane is not ported yet.
+columns forced on), the mask -> ascending block lists conversion that the
+sparse kernel consumes, and the multilevel lane's rank bands: the int level
+mask and the per-level ascending lists that the multi-level kernel walks.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -18,6 +19,10 @@ __all__ = [
     "pad_to_block_multiple",
     "sample_block_tokens",
     "energy_mask",
+    "DEFAULT_MASK_RATIOS",
+    "multilevel_mask",
+    "multilevel_rank_bands",
+    "multilevel_lists",
     "mask_to_block_lists",
     "mask_density",
 ]
@@ -132,6 +137,132 @@ def energy_mask(
     if force_last2:
         mask = _force_last2(mask, True)
     return mask
+
+
+# Inference-time multilevel bands: fraction-of-rank -> pooling level
+# (1 = full attention, L = L-times mean-pooled K/V, 0 = skip).
+DEFAULT_MASK_RATIOS: Dict[int, Tuple[float, float]] = {
+    1: (0.0, 0.05),
+    2: (0.05, 0.15),
+    4: (0.15, 0.25),
+    8: (0.25, 0.5),
+    0: (0.5, 1.0),
+}
+
+
+def _descending_order(scores: torch.Tensor) -> torch.Tensor:
+    """Stable descending ranking: ties keep the lower index first (JAX's
+    ``argsort(-scores, stable=True)``)."""
+    return torch.sort(scores, dim=-1, descending=True, stable=True).indices
+
+
+def multilevel_mask(
+    scores: torch.Tensor,
+    mask_ratios: Optional[Dict[int, Tuple[float, float]]] = None,
+    force_last2: bool = True,
+) -> torch.Tensor:
+    """Int32 level mask in {0, 1, 2, 4, 8}: the key block of descending rank
+    ``r`` gets the level of the band ``[int(n_k*lo), int(n_k*hi))`` holding
+    ``r``; the last two block rows and columns are then forced to 1."""
+    if mask_ratios is None:
+        mask_ratios = DEFAULT_MASK_RATIOS
+    n_k = scores.shape[-1]
+    order = _descending_order(scores)
+    ranks = torch.arange(n_k, device=scores.device)
+    band = torch.zeros(n_k, dtype=torch.int32, device=scores.device)
+    for level, (lo, hi) in mask_ratios.items():
+        lo_i, hi_i = max(0, int(n_k * lo)), min(n_k, int(n_k * hi))
+        band = torch.where((ranks >= lo_i) & (ranks < hi_i),
+                           torch.full_like(band, level), band)
+    levels = torch.empty(scores.shape, dtype=torch.int32, device=scores.device)
+    levels.scatter_(-1, order, band.expand(scores.shape).contiguous())
+    if force_last2:
+        levels = _force_last2(levels, 1)
+    return levels
+
+
+def multilevel_rank_bands(
+    n_k: int, mask_ratios: Optional[Dict[int, Tuple[float, float]]] = None
+) -> Dict[int, Tuple[int, int]]:
+    """Static ``level -> (band_start, band_width)`` over a descending ranking
+    of ``n_k`` key blocks (levels 1, 2, 4, 8)."""
+    if mask_ratios is None:
+        mask_ratios = DEFAULT_MASK_RATIOS
+    bands = {}
+    for level in (1, 2, 4, 8):
+        lo, hi = mask_ratios.get(level, (0.0, 0.0))
+        lo_i, hi_i = max(0, int(n_k * lo)), min(n_k, int(n_k * hi))
+        bands[level] = (lo_i, max(hi_i - lo_i, 0))
+    return bands
+
+
+def multilevel_lists(
+    scores: torch.Tensor,
+    mask_ratios: Optional[Dict[int, Tuple[float, float]]] = None,
+    cap: Optional[int] = None,
+    force_last2: bool = True,
+):
+    """Per-level ascending block lists straight from one score ranking;
+    equal, bit for bit, to ``multilevel_mask`` followed by one
+    ``mask_to_block_lists`` a level.
+
+    Each level's list is its rank band of the descending order, sorted.  The
+    last two key blocks are forced to level 1: removed from whichever band
+    they ranked into (they become sentinels past ``n_k``, compacted by the
+    sort and clamped back to ``n_k - 1``) and appended to the level-1 list,
+    where, as the two largest indices, they keep it ascending.  The last two
+    query rows attend at level 1 to every block (``min(n_k, cap)`` of them).
+
+    Returns ``(idx int32 [..., n_q, 4, cap], counts int32 [..., n_q, 4])``
+    for levels 1, 2, 4, 8; list tails repeat an in-range index.
+    """
+    if mask_ratios is None:
+        mask_ratios = DEFAULT_MASK_RATIOS
+    n_q, n_k = scores.shape[-2], scores.shape[-1]
+    lead = scores.shape[:-1]
+    dev = scores.device
+    if cap is None:
+        cap = n_k
+    sentinel = n_k + 2
+    order = _descending_order(scores).to(torch.int32)
+    forced_row = (torch.arange(n_q, device=dev) >= n_q - 2) if force_last2 \
+        else torch.zeros(n_q, dtype=torch.bool, device=dev)
+    full_row = torch.arange(cap, dtype=torch.int32, device=dev).clamp(max=n_k - 1)
+    bands = multilevel_rank_bands(n_k, mask_ratios)
+    idx_levels, cnt_levels = [], []
+    for level in (1, 2, 4, 8):
+        lo_i, band_w = bands[level]
+        budget = cap - (2 if (level == 1 and force_last2) else 0)
+        width = min(band_w, budget)
+        cnt = torch.full(lead, width, dtype=torch.int32, device=dev)
+        if width:
+            band = order[..., lo_i:lo_i + width]
+            if force_last2:
+                is_forced = band >= n_k - 2
+                band = torch.where(is_forced, torch.full_like(band, sentinel), band)
+                cnt = cnt - is_forced.sum(-1, dtype=torch.int32)
+            if level == 1 and force_last2:
+                tail = torch.arange(n_k - 2, n_k, dtype=torch.int32, device=dev)
+                band = torch.cat([band, tail.expand(*lead, 2)], dim=-1)
+                cnt = cnt + 2
+            asc = torch.sort(band, dim=-1).values.clamp(max=n_k - 1)
+            if cap > asc.shape[-1]:
+                asc = torch.cat([asc, asc[..., -1:].expand(*lead, cap - asc.shape[-1])],
+                                dim=-1)
+        elif level == 1 and force_last2:
+            asc = torch.arange(n_k - 2, n_k - 2 + cap, dtype=torch.int32, device=dev)
+            asc = asc.clamp(max=n_k - 1).expand(*lead, cap)
+            cnt = cnt + 2
+        else:
+            asc = torch.zeros((*lead, cap), dtype=torch.int32, device=dev)
+        if level == 1:
+            asc = torch.where(forced_row[:, None], full_row, asc)
+            cnt = torch.where(forced_row, torch.full_like(cnt, min(n_k, cap)), cnt)
+        else:
+            cnt = torch.where(forced_row, torch.zeros_like(cnt), cnt)
+        idx_levels.append(asc)
+        cnt_levels.append(cnt)
+    return torch.stack(idx_levels, dim=-2), torch.stack(cnt_levels, dim=-1)
 
 
 def mask_to_block_lists(mask: torch.Tensor):

@@ -1,4 +1,4 @@
-"""Text-to-video inference CLI, Wan path (counterpart of
+"""Text-to-video inference CLI, Wan and CogVideoX (counterpart of
 ``blade/cli/inference.py``).
 
 The text encoder and checkpoint loading are not ported yet, so the CLI runs
@@ -8,8 +8,10 @@ prompt from a seed derived from the prompt text.
 Examples:
   python -m blade_torch.cli.inference --preset wan-1.3b-480p --random-init \\
       --prompt "a cat surfing" --steps 8 --output_dir outputs/
-  python -m blade_torch.cli.inference --tiny --random-init --device cpu \\
-      --prompt "a cat surfing" --steps 2
+  python -m blade_torch.cli.inference --preset cogvideox-5b-480p --random-init \\
+      --prompt "a cat surfing" --steps 8 --output_dir outputs/
+  python -m blade_torch.cli.inference --family cogvideox --tiny --random-init \\
+      --device cpu --prompt "a cat surfing" --steps 2
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import torch
 
 
 def get_args(argv=None):
-    p = argparse.ArgumentParser(description="BLADE PyTorch inference (Wan)")
+    p = argparse.ArgumentParser(description="BLADE PyTorch inference")
+    p.add_argument("--family", choices=["wan", "cogvideox"], default="wan")
     p.add_argument("--prompts", type=str, help="text file, one prompt per line")
     p.add_argument("--prompt", type=str, help="single prompt")
     p.add_argument("--output_dir", type=str, default="outputs")
@@ -31,6 +34,9 @@ def get_args(argv=None):
     p.add_argument("--seed", type=int, default=8888)
     p.add_argument("--sparse", action="store_true", default=True)
     p.add_argument("--dense", dest="sparse", action="store_false")
+    p.add_argument("--mask_mode", choices=["energy", "multilevel"], default=None,
+                   help="ASA lane; default: multilevel for cogvideox (the reference "
+                        "eval path), energy for wan")
     p.add_argument("--mask_refresh_every", type=int, default=0,
                    help="reuse ASA masks across denoise steps, re-predicting "
                         "every N steps (0/1 = off)")
@@ -38,7 +44,8 @@ def get_args(argv=None):
                    help="random weights (smoke/benchmark)")
     p.add_argument("--tiny", action="store_true", help="tiny CPU preset")
     p.add_argument("--preset", type=str, default=None,
-                   help="named preset (overrides --tiny): wan-1.3b-480p, wan-tiny")
+                   help="named preset (overrides --family/--tiny): wan-1.3b-480p, "
+                        "cogvideox-5b-480p, wan-tiny, cogvideox-tiny")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda)")
     return p.parse_args(argv)
@@ -52,13 +59,17 @@ def build_pipeline(args):
     from blade_torch.sampling.t2v import T2VPipeline
     from blade_torch.utils.rng import make_generator
 
-    preset = C.PRESETS[args.preset] if args.preset else (
-        C.WAN_TINY_PRESET if args.tiny else C.WAN_480P)
+    if args.preset:
+        preset = C.PRESETS[args.preset]
+    elif args.family == "wan":
+        preset = C.WAN_TINY_PRESET if args.tiny else C.WAN_480P
+    else:
+        preset = C.COGVIDEOX_TINY_PRESET if args.tiny else C.COGVIDEOX_480P
     if not args.random_init:
         raise SystemExit("checkpoint loading is not ported yet: pass --random-init")
     device = torch.device(args.device or "cuda")
     return T2VPipeline.random_init(
-        preset, make_generator(0, device), sparse=args.sparse,
+        preset, make_generator(0, device), sparse=args.sparse, mask_mode=args.mask_mode,
         dtype=torch.float32 if args.tiny else torch.bfloat16)
 
 

@@ -10,6 +10,12 @@ dicts (diffusers key layout), with numpy only.
   ``blade/convert/vae_convert.py::fake_torch_state_dict`` for the Wan VAE
   (the decode half the port runs: ``decoder.*`` and ``post_quant_conv.*``).
 
+* :func:`cogvideox_transformer_state_dict` inverts
+  ``convert_cogvideox_transformer`` (diffusers
+  ``CogVideoXTransformer3DModel`` keys), and
+  :func:`cogvideox_vae_state_dict` follows ``fake_torch_state_dict`` for the
+  CogVideoX VAE's decoder (``AutoencoderKLCogVideoX`` ``decoder.*`` keys).
+
 * :func:`wan_lora_factors` maps ``blade/training/lora.py``'s LoRA factor
   tree over a flax ``WanModel`` onto the port's adapter dict
   (``training/lora.py``), permuting the ``b`` columns of ``attn1.to_q`` /
@@ -25,7 +31,7 @@ from typing import Dict, Mapping
 import numpy as np
 
 __all__ = ["wan_transformer_state_dict", "wan_vae_state_dict", "wan_lora_factors",
-           "to_torch"]
+           "cogvideox_transformer_state_dict", "cogvideox_vae_state_dict", "to_torch"]
 
 
 def _tree(params: Mapping) -> Mapping:
@@ -84,6 +90,43 @@ def wan_transformer_state_dict(params: Mapping, num_layers: int) -> Dict[str, np
         _norm(sd, f"{b}.norm2", lp["norm3"])
         _lin(sd, f"{b}.ffn.net.0.proj", lp["ffn"]["Dense_0"])
         _lin(sd, f"{b}.ffn.net.2", lp["ffn"]["Dense_1"])
+    return sd
+
+
+def _conv_weight(node: Mapping) -> np.ndarray:
+    """flax conv kernel ``[*k, in, out]`` -> torch ``[out, in, *k]``."""
+    w = np.asarray(node["kernel"], np.float32)
+    return np.ascontiguousarray(np.moveaxis(w, (-1, -2), (0, 1)))
+
+
+def cogvideox_transformer_state_dict(params: Mapping, num_layers: int
+                                     ) -> Dict[str, np.ndarray]:
+    """flax ``CogVideoXModel`` params -> diffusers
+    ``CogVideoXTransformer3DModel`` keys."""
+    p = _tree(params)
+    sd: Dict[str, np.ndarray] = {
+        "patch_embed.proj.weight": _conv_weight(p["patch_embed"]),
+        "patch_embed.proj.bias": np.asarray(p["patch_embed"]["bias"], np.float32),
+    }
+    _lin(sd, "patch_embed.text_proj", p["text_proj"])
+    _lin(sd, "time_embedding.linear_1", p["time_embed_1"])
+    _lin(sd, "time_embedding.linear_2", p["time_embed_2"])
+    _norm(sd, "norm_final", p["norm_final"])
+    _norm(sd, "norm_out.norm", p["norm_out"])
+    _lin(sd, "norm_out.linear", p["norm_out_linear"])
+    _lin(sd, "proj_out", p["proj_out"])
+    for i in range(num_layers):
+        lp, b = _layer(p, i), f"transformer_blocks.{i}"
+        for norm in ("norm1", "norm2"):
+            _lin(sd, f"{b}.{norm}.linear", lp[norm]["linear"])
+            _norm(sd, f"{b}.{norm}.norm", lp[norm]["norm"])
+        for proj in ("to_q", "to_k", "to_v"):
+            _lin(sd, f"{b}.attn1.{proj}", lp["attn1"][proj])
+        _lin(sd, f"{b}.attn1.to_out.0", lp["attn1"]["to_out"])
+        _norm(sd, f"{b}.attn1.norm_q", lp["attn1"]["norm_q"])
+        _norm(sd, f"{b}.attn1.norm_k", lp["attn1"]["norm_k"])
+        _lin(sd, f"{b}.ff.net.0.proj", lp["ff"]["Dense_0"])
+        _lin(sd, f"{b}.ff.net.2", lp["ff"]["Dense_1"])
     return sd
 
 
@@ -173,6 +216,27 @@ def wan_vae_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
                 _torch_conv(value) if leaf == "kernel" else value)
         else:
             raise KeyError(f"unmapped Wan VAE param: {'/'.join(path)}")
+    return sd
+
+
+def cogvideox_vae_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
+    """flax ``CogVideoXVAE`` params -> ``AutoencoderKLCogVideoX`` keys of the
+    decoder (``decoder.*``); encoder keys are dropped."""
+    sd: Dict[str, np.ndarray] = {}
+    for path, value in _flatten(_tree(params)):
+        if path[0] != "decoder":
+            continue
+        value = np.asarray(value, np.float32)
+        segs = [_split_index(s) for s in path]
+        key, leaf = ".".join(segs[:-1]), segs[-1]
+        if leaf == "kernel":  # causal convs' inner conv, upsampler conv, shortcut
+            sd[f"{key}.weight"] = _torch_conv(value)
+        elif leaf == "scale":
+            sd[f"{key}.weight"] = value
+        elif leaf == "bias":
+            sd[f"{key}.bias"] = value
+        else:
+            raise KeyError(f"unmapped CogVideoX VAE param: {'/'.join(path)}")
     return sd
 
 

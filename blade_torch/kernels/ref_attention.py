@@ -18,12 +18,18 @@ from typing import Optional, Sequence
 
 import torch
 
+from blade_torch.attention.masks import pad_to_block_multiple
+
 __all__ = [
     "dense_attention_with_lse",
     "block_masked_attention",
     "attention_backward_reference",
     "merge_attention",
     "mean_pool_kv",
+    "pool_pyramid",
+    "multilevel_block_attention_reference",
+    "lists_to_level_masks",
+    "multilevel_lists_attention",
     "NEG_INF",
 ]
 
@@ -175,6 +181,118 @@ def mean_pool_kv(x: torch.Tensor, factor: int) -> torch.Tensor:
     """Mean-pool ``[..., L, D]`` along L by ``factor`` (``L % factor == 0``)."""
     *lead, length, d = x.shape
     return x.reshape(*lead, length // factor, factor, d).mean(dim=-2)
+
+
+def pool_pyramid(x: torch.Tensor):
+    """The 2/4/8x mean-pooled pyramid of ``x [..., L, D]`` (``L % 8 == 0``),
+    pooled in f32 and chained (pool4 = pool2(pool2), pool8 = pool2(pool4)),
+    as the pyramid pack kernel pools.  Returns three f32 tensors."""
+    p = x.float()
+    out = []
+    for _ in range(3):
+        y = p.reshape(*p.shape[:-2], p.shape[-2] // 2, 2, p.shape[-1])
+        p = (y[..., 0, :] + y[..., 1, :]) * 0.5
+        out.append(p)
+    return out
+
+
+def multilevel_block_attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    levels: torch.Tensor,
+    *,
+    scale: Optional[float] = None,
+):
+    """Dense reference for multi-level pooled block attention.
+
+    ``levels``: int ``[B, H, L/128, L/128]`` in {0, 1, 2, 4, 8}: 0 skips the
+    block, 1 attends to it fully, L attends to its L-times mean-pooled K/V
+    with a ``+log(L)`` score bias.  Sequences are multiples of 128.
+    Returns ``(out, lse)``.
+    """
+    outs, lses = [], []
+    for level in (1, 2, 4, 8):
+        kp = k if level == 1 else mean_pool_kv(k, level)
+        vp = v if level == 1 else mean_pool_kv(v, level)
+        out_l, lse_l = block_masked_attention(q, kp, vp, levels == level, scale=scale,
+                                              block_k=128 // level,
+                                              bias=float(math.log(level)))
+        outs.append(out_l)
+        lses.append(lse_l)
+    return merge_attention(outs, lses)
+
+
+def lists_to_level_masks(idx: torch.Tensor, counts: torch.Tensor, n_kt: int) -> torch.Tensor:
+    """Per-level lists ``(idx [..., 4, cap], counts [..., 4])`` -> bool
+    ``[..., 4, n_kt]`` (entries past a level's count are ignored)."""
+    valid = torch.arange(idx.shape[-1], device=idx.device) < counts[..., None]
+    hits = torch.zeros((*idx.shape[:-1], n_kt), dtype=torch.int32, device=idx.device)
+    hits.scatter_add_(-1, idx.long(), valid.to(torch.int32))
+    return hits > 0
+
+
+def multilevel_lists_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    lists,
+    *,
+    q_rows: int,
+    scale: Optional[float] = None,
+):
+    """Multi-level attention driven by per-level lists: the plain version of
+    the fused multi-level kernel (``csrc/multilevel_attn.cu``).
+
+    ``lists = (idx [B, H, n_q, 4, cap], counts [B, H, n_q, 4])`` for levels
+    1, 2, 4, 8 (``masks.multilevel_lists``); mask row ``i`` covers queries
+    ``[i * q_rows, (i + 1) * q_rows)``.  K/V are edge-padded to whole 128
+    blocks; level 1 attends to keys below ``Lk``, level L to the pooled rows
+    below ``ceil(Lk / L)`` of the chained f32 pyramid rounded to K's dtype
+    (the pyramid pack kernel's output), with a ``+log(L)`` bias.  A row with
+    no key gets out 0 and lse ``NEG_INF``.  f32 math, chunked over mask rows.
+    """
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    lq, lk = q.shape[-2], k.shape[-2]
+    idx, counts = lists
+    n_q = idx.shape[-3]
+    if n_q * q_rows < lq:
+        raise ValueError(f"{n_q} mask rows of {q_rows} do not cover {lq} queries")
+    kp, vp = pad_to_block_multiple(k, 128), pad_to_block_multiple(v, 128)
+    n_kt = kp.shape[-2] // 128
+    level_mask = lists_to_level_masks(idx, counts, n_kt)  # [B, H, n_q, 4, n_kt]
+    keys, vals, col_level, col_block, col_ok, col_bias = [kp.float()], [vp.float()], [], [], [], []
+    for pk, pv in zip(pool_pyramid(kp), pool_pyramid(vp)):
+        keys.append(pk.to(k.dtype).float())
+        vals.append(pv.to(v.dtype).float())
+    for li, (level, kl) in enumerate(zip((1, 2, 4, 8), keys)):
+        cols = torch.arange(kl.shape[-2], device=q.device)
+        col_level.append(torch.full_like(cols, li))
+        col_block.append(cols // (128 // level))
+        col_ok.append(cols < -(-lk // level))
+        col_bias.append(torch.full(cols.shape, math.log(level), device=q.device))
+    kall, vall = torch.cat(keys, dim=-2), torch.cat(vals, dim=-2)
+    col_level, col_block = torch.cat(col_level), torch.cat(col_block)
+    col_ok, col_bias = torch.cat(col_ok), torch.cat(col_bias)
+    lead = math.prod(q.shape[:-2])
+    step = max(1, _CHUNK_ELEMS // max(1, lead * kall.shape[-2] * q_rows))
+    outs, lses = [], []
+    for m0 in range(0, -(-lq // q_rows), step):
+        qc = q[..., m0 * q_rows:(m0 + step) * q_rows, :]
+        rows = qc.shape[-2]
+        tok = level_mask[..., m0:m0 + step, :, :][..., col_level, col_block] & col_ok
+        tok = tok.repeat_interleave(q_rows, dim=-2)[..., :rows, :]
+        s = torch.matmul(qc.float(), kall.transpose(-1, -2)) * scale + col_bias
+        s = torch.where(tok, s, torch.full_like(s, NEG_INF))
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.where(tok, torch.exp(s - m), torch.zeros_like(s))
+        l = p.sum(dim=-1, keepdim=True)
+        l_safe = torch.where(l == 0, torch.ones_like(l), l)
+        outs.append(torch.matmul(p / l_safe, vall).to(q.dtype))
+        lse = (m + torch.log(l_safe))[..., 0]
+        lses.append(torch.where(l[..., 0] == 0, torch.full_like(lse, NEG_INF), lse))
+    return torch.cat(outs, dim=-2), torch.cat(lses, dim=-1)
 
 
 def merge_attention(outs: Sequence[torch.Tensor], lses: Sequence[torch.Tensor]):

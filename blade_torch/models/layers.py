@@ -10,7 +10,7 @@ names follow the diffusers state-dict layout.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,10 +22,12 @@ __all__ = [
     "PermutedLinear",
     "RMSNorm",
     "PermutedRMSNorm",
+    "PermutedLayerNorm",
     "FeedForward",
     "sinusoidal_timestep_embedding",
     "TimestepEmbedder",
     "rope_3d_tables",
+    "apply_rope_half",
     "deinterleave_perm",
     "dense_attention_fn",
     "init_lecun_",
@@ -119,6 +121,30 @@ class PermutedRMSNorm(RMSNorm):
         _unpermute_rows_on_save(destination, prefix, ("weight",), self._inv)
 
 
+class PermutedLayerNorm(nn.LayerNorm):
+    """Affine ``LayerNorm`` (f32 internals, returns f32) whose scale and
+    bias are stored permuted by ``feature_perm`` (folded at load time, see
+    :class:`PermutedLinear`); mean and variance are permutation-invariant."""
+
+    def __init__(self, dim: int, feature_perm: np.ndarray, eps: float = 1e-6,
+                 device=None):
+        super().__init__(dim, eps=eps, device=device)
+        self._perm = torch.as_tensor(np.asarray(feature_perm), dtype=torch.long)
+        self._inv = torch.argsort(self._perm)
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
+                            self.bias.float(), self.eps)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        _permute_rows_on_load(self, state_dict, prefix, ("weight", "bias"), self._perm)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+    def _save_to_state_dict(self, destination, prefix, keep_vars):
+        super()._save_to_state_dict(destination, prefix, keep_vars)
+        _unpermute_rows_on_save(destination, prefix, ("weight", "bias"), self._inv)
+
+
 class _GeluProj(nn.Module):
     """diffusers ``GELU(approximate='tanh')`` activation block: ``proj``."""
 
@@ -172,18 +198,25 @@ class TimestepEmbedder(nn.Module):
         return self.linear_2(F.silu(self.linear_1(x)))
 
 
-def rope_3d_tables(head_dim: int, grid_thw: Tuple[int, int, int]
+def rope_3d_tables(head_dim: int, grid_thw: Tuple[int, int, int], *,
+                   dims_thw: Optional[Tuple[int, int, int]] = None
                    ) -> Tuple[np.ndarray, np.ndarray]:
     """Static 3-D rotary cos/sin tables ``[T*H*W, head_dim/2]`` (f32 numpy).
 
     The rotary half-dims ``c = head_dim/2`` split over (t, h, w) as
-    ``(c - 2*(c//3), c//3, c//3)`` (Wan), theta 10000; tokens are t-major
+    ``(c - 2*(c//3), c//3, c//3)`` (Wan) or as half of ``dims_thw``
+    (CogVideoX: ``(16, 24, 24)`` of 64), theta 10000; tokens are t-major
     then h then w.
     """
     t_len, h_len, w_len = grid_thw
     c = head_dim // 2
-    ch = cw = c // 3
-    ct = c - 2 * ch
+    if dims_thw is None:
+        ch = cw = c // 3
+        ct = c - 2 * ch
+    else:
+        if sum(dims_thw) != head_dim:
+            raise ValueError(f"dims_thw {dims_thw} must sum to head_dim {head_dim}")
+        ct, ch, cw = (n // 2 for n in dims_thw)
 
     def axis_freqs(n, cdim):
         inv = 1.0 / (10000.0 ** (np.arange(cdim, dtype=np.float64) / cdim))
@@ -201,6 +234,17 @@ def rope_3d_tables(head_dim: int, grid_thw: Tuple[int, int, int]
         axis=-1,
     ).reshape(t_len * h_len * w_len, c)
     return np.cos(angles).astype(np.float32), np.sin(angles).astype(np.float32)
+
+
+def apply_rope_half(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate-half RoPE of ``x [..., L, D]`` by tables ``[L, D/2]`` (f32
+    math, returns x's dtype): channel ``i`` pairs with ``i + D/2``.  Equal to
+    the checkpoint's interleaved-pair RoPE on channels permuted by
+    :func:`deinterleave_perm`."""
+    half = x.shape[-1] // 2
+    xf = x.float()
+    re, im = xf[..., :half], xf[..., half:]
+    return torch.cat([re * cos - im * sin, re * sin + im * cos], dim=-1).to(x.dtype)
 
 
 def deinterleave_perm(num_heads: int, head_dim: int) -> np.ndarray:

@@ -32,6 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from blade_torch.attention.integration import stack_masks
 from blade_torch.kernels.norm_rope import norm_rope_heads
 from blade_torch.models.layers import (
     FeedForward,
@@ -306,5 +307,5 @@ class WanModel(nn.Module):
         out = out.reshape(b, gt, gh, gw, pt, ph, pw, c.out_channels)
         out = out.permute(0, 7, 1, 4, 2, 5, 3, 6).reshape(b, c.out_channels, t, h, w)
         if collect:
-            return out, torch.stack(auxes)
+            return out, stack_masks(auxes)
         return out

@@ -9,9 +9,11 @@ no result):
 1. the card's name and power limit; build the CUDA kernels from
    ``blade_torch/csrc`` (timed);
 2. TF32 off for matmuls and cuDNN convs (the reference path is f32);
-3. every kernel of the main path against its plain PyTorch version at the
+3. every kernel of the Wan paths against its plain PyTorch version at the
    main-path shapes of Wan2.1-1.3B 480p (B=1, H=12, d=128, L=32760), with
-   max |err| against a stated tolerance and both times from CUDA events;
+   max |err| against a stated tolerance, both times from CUDA events, the
+   least time the card could take (``bound_ms``) and, where one PyTorch call
+   computes the same function, that call's time (``library_ms``);
 4. the main path: the full-width Wan2.1-T2V-1.3B ``wan-1.3b-480p`` preset on
    random weights from a seeded generator serves two requests through
    ``build_pipeline`` and ``T2VPipeline.generate`` (8 UniPC steps, flow shift
@@ -31,11 +33,28 @@ no result):
    (``wan-1.3b-480p``, 30 layers, random weights, ASA, remat), three TDM
    steps with k_step 2 and CFG 5; finite losses, moved adapters, a frozen
    base, a checkpoint at step 2, and exactly 2 x 30 launches of each
-   backward kernel a step (the fake and the generator backward passes).
+   backward kernel a step (the fake and the generator backward passes);
+9. the kernels of the CogVideoX path against their plain versions at
+   CogVideoX-5B 480p shapes (B=1, H=48, d=64, L=17776, q_rows 256, lists
+   from the real predictor): the multi-level kernel, the pyramid pack, the
+   dense kernel at d=64 (predictor and dense leg); the multi-level kernel
+   and the pyramid pack also at Wan 480p shapes (d=128, L=32760);
+10. the CogVideoX serving path: the full-width, full-depth
+   ``cogvideox-5b-480p`` preset (42 blocks, dim 3072, 48 heads of 64) on
+   random weights serves two requests through ``build_pipeline`` and
+   ``T2VPipeline.generate`` (8 SDE-DPM++(2M) steps, CFG 1, the multilevel
+   ASA lane, the f32 CogVideoX VAE decode, tiled and in fb=2 chunks, uint8
+   frames ``(1, 49, 480, 720, 3)``), with exact launch counts (672 each of
+   the multi-level kernel, the pyramid pack and the dense kernel; no other
+   kernel), then one dense-attention forward for ``dense_step_ms``;
+11. a small-input reference check of the CogVideoX model: kernels (bf16,
+   card) against plain versions (f32, CPU) with shared weights and the
+   card's lists replayed.
 
 The second-to-last line is the card's ``name, power.limit``; before it, one
-JSON line with the per-kernel results (``launches`` sums the serving and the
-training paths, each counted from zero); the last line is the result object.
+JSON line with the per-kernel results (``launches`` sums the three paths,
+each counted from zero; ``launches_by_path`` splits them); the last line is
+the result object.
 """
 
 import json
@@ -47,6 +66,11 @@ import time
 
 SERVE_KERNELS = ("dense_fwd", "sparse_fwd", "pack_kv", "norm_rope")
 BACKWARD_KERNELS = ("dense_dq", "dense_dkv", "sparse_dq", "sparse_dkv")
+COG_KERNELS = ("multilevel_fwd", "pack_kv_pyramid", "dense_fwd")
+# Published H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate
+# and HBM3 bandwidth.  bound_ms = max(operations / rate, bytes / bandwidth).
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES = 3.35e12
 
 
 def _nvidia_smi() -> str:
@@ -79,20 +103,101 @@ def _within(got, want, atol, rtol):
     return ((g - w).abs() - rtol * w.abs()).max().item() <= atol
 
 
-def _recorder(checks):
-    """``record(kernel, shape, ok, err, ms, plain_ms, tol, main=False)``:
-    print one check, keep it in ``checks`` (``main`` marks the shape the
-    kernels line reports), raise if it failed."""
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
-    def record(kernel, shape, ok, err, ms, plain_ms, tol, main=False):
-        print(f"check {kernel:10s} {shape:44s} max_abs_err={err:.3e} tol={tol} "
-              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} {'ok' if ok else 'FAIL'}")
+
+def _bound(flops, nbytes):
+    """(bound_ms, bound_by): the least time for ``flops`` bf16 tensor-core
+    operations and ``nbytes`` of device-memory traffic."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _recorder(checks):
+    """``record(kernel, shape, ok, err, ms, plain_ms, tol, main=False,
+    flops=0, nbytes=0, library_ms=None)``: print one check with its bound,
+    keep it in ``checks`` (``main`` marks the shape the kernels line
+    reports), raise if it failed."""
+
+    def record(kernel, shape, ok, err, ms, plain_ms, tol, main=False, flops=0.0,
+               nbytes=0, library_ms=None):
+        bound_ms, bound_by = _bound(flops, nbytes)
+        lib = "null" if library_ms is None else f"{library_ms:.4f}"
+        print(f"check {kernel:15s} {shape:52s} max_abs_err={err:.3e} tol={tol} "
+              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+              f"({bound_by}) library_ms={lib} {'ok' if ok else 'FAIL'}")
         checks.setdefault(kernel, []).append(
-            dict(shape=shape, ok=ok, max_abs_err=err, ms=ms, plain_ms=plain_ms, main=main))
+            dict(shape=shape, ok=ok, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                 flops=flops, bytes=nbytes, main=main))
         if not ok:
             raise AssertionError(f"{kernel} at {shape}: max_abs_err {err} over {tol}")
 
     return record
+
+
+def _block_pairs(mask, lq, lk):
+    """Query-key pairs a 128 x 128 block mask selects (rows past ``lq`` and
+    keys past ``lk`` excluded)."""
+    import torch
+
+    n_qt, n_kt = mask.shape[-2:]
+    rows = (lq - 128 * torch.arange(n_qt, device=mask.device)).clamp(max=128)
+    keys = (lk - 128 * torch.arange(n_kt, device=mask.device)).clamp(max=128)
+    return float((mask.double() * rows[:, None] * keys[None, :]).sum())
+
+
+def _multilevel_pairs(idx, cnt, lq, lk, q_rows):
+    """Query-key pairs the multi-level lists select: level-L keys are pooled
+    rows, those past ``ceil(lk / L)`` and rows past ``lq`` excluded."""
+    import torch
+
+    n_q, cap = idx.shape[-3], idx.shape[-1]
+    rows = (lq - q_rows * torch.arange(n_q, device=idx.device)).clamp(max=q_rows)
+    total = 0.0
+    for li, level in enumerate((1, 2, 4, 8)):
+        seg = 128 // level
+        keys = (-(-lk // level) - seg * idx[..., li, :].long()).clamp(0, seg)
+        live = torch.arange(cap, device=idx.device) < cnt[..., li, None]
+        total += float(((keys * live).sum(-1).double() * rows).sum())
+    return total
+
+
+# Attention tolerances.  out: max |err| <= 2e-2 * max |ref|, held against the
+# output's own scale: one bf16 ulp at the largest output is 2^-8 to 2^-7 of
+# it, so this allows 2.5 to 5 ulps there, where the kernel rounds P to bf16
+# before P @ V and its output to bf16 (measured: about one ulp).  lse:
+# max |err| <= 5e-3 (f32 sums in another order).
+OUT_REL, LSE_ATOL = 2e-2, 5e-3
+
+# CogVideoX-5B 480p attention (config.COGVIDEOX_480P): 48 heads of 64 over
+# 13*30*45 video + 226 text tokens; the predictor samples 16 tokens a 128-key
+# block.  Literal so that the dense d = 64 checks also time a checkout that
+# has no CogVideoX config (scripts/torch_kernel_times.py).
+COG_HEADS, COG_HEAD_DIM, COG_TOKENS, COG_SAMPLE = 48, 64, 17776, 16
+
+
+def _attn_check(torch, record, kernel, shape, fn, plain, reps, plain_reps=1, main=False,
+                flops=0.0, nbytes=0, library=None):
+    """One attention kernel check: ``fn`` and ``plain`` return ``(out, lse)``;
+    ``nbytes`` counts the inputs (the outputs are added here)."""
+    out, lse = fn()
+    ref_out, ref_lse = plain()
+    err_out, err_lse = _max_err(out, ref_out), _max_err(lse, ref_lse)
+    ref_max = ref_out.float().abs().max().item()
+    ok = err_out <= OUT_REL * ref_max and err_lse <= LSE_ATOL
+    lib_ms = None if library is None else _cuda_ms(torch, library, reps)
+    record(kernel, shape, ok, max(err_out, err_lse), _cuda_ms(torch, fn, reps),
+           _cuda_ms(torch, plain, plain_reps),
+           f"out {err_out:.3e} <= 2e-2*max|ref| ({ref_max:.4e}), lse {err_lse:.3e} <= 5e-3",
+           main, flops, nbytes + _nbytes(out, lse), lib_ms)
+
+
+def _dense_work(q, k, v):
+    """(flops, input bytes) of dense attention over q, k, v."""
+    bh, lq, lk = q.shape[0] * q.shape[1], q.shape[2], k.shape[2]
+    return 2.0 * bh * lq * lk * (q.shape[3] + v.shape[3]), _nbytes(q, k, v)
 
 
 def check_kernels(torch, dev, checks):
@@ -117,20 +222,17 @@ def check_kernels(torch, dev, checks):
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(bf)
 
-    # Tolerances (max over elements of |err| - rtol*|ref| <= atol): attention
-    # out 2e-2 + 1e-2|ref| (bf16 output rounding, the kernel's bf16 P @ V),
-    # lse 5e-3 (f32 sums in another order), norm_rope 2e-2 + 1e-2|ref| (one
-    # bf16 ulp of the rounded output), pack bit for bit.
-    OUT, LSE, ROPE = (2e-2, 1e-2), (5e-3, 0.0), (2e-2, 1e-2)
+    # Tolerances: attention OUT_REL / LSE_ATOL; norm_rope 2e-2 + 1e-2|ref|
+    # (one bf16 ulp of the rounded output); pack bit for bit.
+    ROPE = (2e-2, 1e-2)
     record = _recorder(checks)
 
-    def attn_check(kernel, shape, fn, plain, reps, plain_reps=1, main=False):
-        out, lse = fn()
-        ref_out, ref_lse = plain()
-        ok = _within(out, ref_out, *OUT) and _within(lse, ref_lse, *LSE)
-        err = max(_max_err(out, ref_out), _max_err(lse, ref_lse))
-        record(kernel, shape, ok, err, _cuda_ms(torch, fn, reps),
-               _cuda_ms(torch, plain, plain_reps), "out 2e-2+1e-2|ref|, lse 5e-3", main)
+    def attn_check(*a, **kw):
+        _attn_check(torch, record, *a, **kw)
+
+    dense_work = _dense_work
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
 
     # -- dense flash (#1): predictor, pooled branch, dense leg ------------------
     cfg = C.derive_asa_config(C.WAN_480P)
@@ -141,32 +243,36 @@ def check_kernels(torch, dev, checks):
     pool = pool.expand(1, h, ls, 256).contiguous()
     attn_check("dense_fwd", "predictor q,k [1,12,4096,128] v [1,12,4096,256]",
                lambda: flash_attention_wide_v(qs, ks, pool),
-               lambda: dense_attention_with_lse(qs, ks, pool), reps=20, plain_reps=3)
+               lambda: dense_attention_with_lse(qs, ks, pool), 20, 3, False,
+               *dense_work(qs, ks, pool), library=lambda: sdpa(qs, ks, pool))
     q, k, v = randn(1, h, L, d), randn(1, h, L, d), randn(1, h, L, d)
     kp = (k.float().reshape(1, h, -1, 30, d).mean(3)).to(bf)
     vp = (v.float().reshape(1, h, -1, 30, d).mean(3)).to(bf)
     attn_check("dense_fwd", "pooled q [1,12,32760,128] k,v [1,12,1092,128]",
                lambda: flash_attention(q, kp, vp, bias=math.log(30.0)),
                lambda: dense_attention_with_lse(q, kp, vp, bias=math.log(30.0)),
-               reps=20, plain_reps=3, main=True)
+               20, 3, True, *dense_work(q, kp, vp), library=lambda: sdpa(q, kp, vp))
     attn_check("dense_fwd", "dense leg q,k,v [1,12,32760,128]",
                lambda: flash_attention(q, k, v),
-               lambda: dense_attention_with_lse(q, k, v), reps=3)
+               lambda: dense_attention_with_lse(q, k, v), 3, 1, False, *dense_work(q, k, v),
+               library=lambda: sdpa(q, k, v))
 
     # -- sparse rows (#2) with a mask from the real predictor -----------------
     mask = asa.compute_mask(q, k, cfg, generator=make_generator(7, dev))
     density = mask.float().mean().item()
     attn_check("sparse_fwd", f"q,k,v [1,12,32760,128] density {density:.4f}",
                lambda: block_sparse_attention(q, k, v, mask),
-               lambda: block_masked_attention(q, k, v, mask, block_k=128), reps=10,
-               main=True)
+               lambda: block_masked_attention(q, k, v, mask, block_k=128), 10, 1, True,
+               4.0 * d * _block_pairs(mask, L, L), _nbytes(q, k, v, mask))
 
-    # -- pack_kv (#3), bit exact ----------------------------------------------
+    # -- pack_kv (#3), bit exact; the library call is its plain torch.stack --
     kf, vf = randn(h, 32768, d), randn(h, 32768, d)
     got, want = pack_kv(kf, vf), _pack_kv_reference(kf, vf)
+    stack = lambda: torch.stack([kf.view(h, 256, 128, d), vf.view(h, 256, 128, d)], dim=2)
     record("pack_kv", "k,v [12,32768,128] -> [12,65536,128]", torch.equal(got, want),
            _max_err(got, want), _cuda_ms(torch, lambda: pack_kv(kf, vf), 50),
-           _cuda_ms(torch, lambda: _pack_kv_reference(kf, vf), 50), "bit exact", True)
+           _cuda_ms(torch, lambda: _pack_kv_reference(kf, vf), 50), "bit exact", True,
+           0.0, _nbytes(kf, vf, got), _cuda_ms(torch, stack, 50))
 
     # -- norm_rope (#4) -------------------------------------------------------
     x = randn(1, L, 1536)
@@ -180,26 +286,17 @@ def check_kernels(torch, dev, checks):
     record("norm_rope", "x [1,32760,1536] -> [1,12,32760,128]", _within(got, want, *ROPE),
            _max_err(got, want), _cuda_ms(torch, lambda: norm_rope_heads(x, scale, cos, sin, h), 50),
            _cuda_ms(torch, lambda: _norm_rope_reference(x, scale, cos, sin, h, 1e-6), 20),
-           "2e-2+1e-2|ref|", True)
+           "2e-2+1e-2|ref|", True, 0.0, _nbytes(x, scale, cos, sin, got))
 
 
-def serve(torch, dev):
-    """Phase 4: two full 480p requests on the port's main path."""
-    from blade_torch.cli.inference import build_pipeline, get_args, random_text_embeds
+def _two_requests(torch, pipe, text, seed, steps, frames_shape):
+    """Two requests through ``T2VPipeline.generate`` with the kernels' launch
+    counters zeroed just before and read just after; per request the host
+    times of the whole clip, the denoise and the decode, and peak memory."""
     from blade_torch.kernels._build import KERNELS, reset_launch_counts
-    from blade_torch.models.wan_dit import WanModel
     from blade_torch.utils.rng import make_generator
 
-    args = get_args(["--preset", "wan-1.3b-480p", "--random-init", "--seed", "8888",
-                     "--steps", "8"])
-    t0 = time.perf_counter()
-    pipe = build_pipeline(args)
-    torch.cuda.synchronize()
-    print(f"pipeline built (random weights, seed 0) in {time.perf_counter() - t0:.2f} s; "
-          f"DiT params {sum(p.numel() for p in pipe.dit.parameters()) / 1e9:.3f} B")
-    text = random_text_embeds(pipe, "a corgi surfing a wave at sunset")
-    assert text.shape == (1, 512, 4096)
-
+    dev = pipe.device
     # Measurement shim: time the two halves of generate() on the host clock.
     timed = {}
     sample_latents, decode_latents = pipe.sample_latents, pipe.decode_latents
@@ -224,37 +321,57 @@ def serve(torch, dev):
     results = []
     reset_launch_counts()
     for i in range(2):
+        torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
-        frames = pipe.generate(text, generator=make_generator(args.seed + i, dev),
-                               num_steps=args.steps)
+        frames = pipe.generate(text, generator=make_generator(seed + i, dev), num_steps=steps)
         u8 = pipe.frames_to_uint8(frames)
         torch.cuda.synchronize()
         clip_s = time.perf_counter() - t
-        assert u8.shape == (1, 81, 480, 832, 3) and u8.dtype == torch.uint8, u8.shape
+        assert u8.shape == frames_shape and u8.dtype == torch.uint8, u8.shape
         assert timed["latents_finite"], "non-finite latents"
         assert torch.isfinite(frames).all()
         r = dict(request=i, denoise_s=timed["denoise_s"],
-                 step_ms=1000 * timed["denoise_s"] / args.steps,
+                 step_ms=1000 * timed["denoise_s"] / steps,
                  decode_s=timed["decode_s"], clip_s=clip_s,
+                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
                  frames_mean=float(u8.float().mean()), frames_std=float(u8.float().std()))
         print("request " + json.dumps(r))
         results.append(r)
     launches = {name: k.launches for name, k in KERNELS.items()}
     print("launches over the two requests " + json.dumps(launches))
     pipe.sample_latents, pipe.decode_latents = sample_latents, decode_latents
+    return results, launches, timed["latents"]
+
+
+def serve(torch, dev):
+    """Phase 4: two full 480p requests on the port's Wan path."""
+    from blade_torch.cli.inference import build_pipeline, get_args, random_text_embeds
+    from blade_torch.models.wan_dit import WanModel
+
+    args = get_args(["--preset", "wan-1.3b-480p", "--random-init", "--seed", "8888",
+                     "--steps", "8"])
+    t0 = time.perf_counter()
+    pipe = build_pipeline(args)
+    torch.cuda.synchronize()
+    print(f"pipeline built (random weights, seed 0) in {time.perf_counter() - t0:.2f} s; "
+          f"DiT params {sum(p.numel() for p in pipe.dit.parameters()) / 1e9:.3f} B")
+    text = random_text_embeds(pipe, "a corgi surfing a wave at sunset")
+    assert text.shape == (1, 512, 4096)
+    results, launches, lat = _two_requests(torch, pipe, text, args.seed, args.steps,
+                                           (1, 81, 480, 832, 3))
     L, steps = pipe.preset.dit.num_layers, args.steps
     per_clip = {"norm_rope": 2 * L * steps, "sparse_fwd": L * steps, "pack_kv": L * steps}
     for name, n in per_clip.items():
         assert launches[name] == 2 * n, (name, launches[name], 2 * n)
     assert launches["dense_fwd"] >= 2 * 2 * L * steps, launches
-    # serving runs no backward kernel
+    # serving runs no backward kernel and none of the multilevel lane's
     assert all(launches[n] > 0 for n in SERVE_KERNELS), launches
     assert all(launches[n] == 0 for n in BACKWARD_KERNELS), launches
+    assert launches["multilevel_fwd"] == launches["pack_kv_pyramid"] == 0, launches
 
     # One dense forward on the same weights for comparison.
     dense = WanModel(pipe.preset.dit, dtype=pipe.dtype, device=dev).eval()
     dense.load_state_dict(pipe.dit.state_dict())
-    lat = timed["latents"]
     tstep = torch.full((1,), 999.0, device=dev)
     with torch.inference_mode():
         dense(lat, tstep, text)
@@ -363,6 +480,13 @@ def check_backward(torch, dev, checks):
                 rows = got["dq"].reshape(-1, q.shape[2], d)[bh, qb * 128:(qb + 1) * 128]
                 assert rows.float().abs().max().item() == 0.0, "empty row has a gradient"
         plain_ms = _cuda_ms(torch, plain, 1)
+        lq, lk = q.shape[2], k.shape[2]
+        pairs = (q.shape[0] * q.shape[1] * float(lq) * lk if mask is None
+                 else _block_pairs(mask, lq, lk))
+        stats = _nbytes(q, k, v, g_out, lse, g_lse) + 4 * lse.numel()  # + delta
+        # dQ: S, dP, dQ products; dK/dV: S, dP, dV, dK (2 flops a multiply-add)
+        work = {"dq": (6.0 * d * pairs, stats + _nbytes(got["dq"])),
+                "dkv": (8.0 * d * pairs, stats + _nbytes(got["dk"], got["dv"]))}
         for part, names in (("dq", ("dq",)), ("dkv", ("dk", "dv"))):
             errs = {n: _max_err(got[n], want[n]) for n in names}
             refs = {n: want[n].float().abs().max().item() for n in names}
@@ -371,7 +495,7 @@ def check_backward(torch, dev, checks):
             record(f"{kind}_{part}", shape, all(errs[n] <= REL * refs[n] for n in names),
                    max(errs.values()), ms, plain_ms,
                    f"2e-2*max|ref| per grad (err/max|ref|: {per}; plain = the whole "
-                   "backward)", main)
+                   "backward)", main, *work[part])
 
     q, k, v = randn(1, h, L, d), randn(1, h, L, d), randn(1, h, L, d)
     kp = (k.float().reshape(1, h, -1, 30, d).mean(3)).to(torch.bfloat16)
@@ -491,6 +615,170 @@ def train(torch, dev):
     return res, launches
 
 
+def check_cog_multilevel(torch, dev, checks):
+    """Phase 9, first half: the multi-level kernel and the pyramid pack
+    against their plain versions at CogVideoX-5B 480p shapes and at Wan 480p
+    shapes, with lists from the real predictor."""
+    from blade_torch import config as C
+    from blade_torch.attention import asa
+    from blade_torch.kernels.multilevel_attn import multilevel_from_records
+    from blade_torch.kernels.pack import _pack_kv_pyramid_reference, pack_kv_pyramid
+    from blade_torch.kernels.ref_attention import multilevel_lists_attention
+    from blade_torch.utils.rng import make_generator
+
+    gen = make_generator(2024, dev)
+    record = _recorder(checks)
+    cfg, dit = C.derive_asa_config(C.COGVIDEOX_480P), C.COGVIDEOX_480P.dit
+    assert (dit.num_heads, dit.head_dim, cfg.seq_len, cfg.sample_tokens_per_block) == (
+        COG_HEADS, COG_HEAD_DIM, COG_TOKENS, COG_SAMPLE)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def multilevel(preset, main):
+        cfg = C.derive_asa_config(preset, "multilevel")
+        h, d = preset.dit.num_heads, preset.dit.head_dim
+        length = cfg.seq_len
+        q, k, v = (randn(1, h, length, d) for _ in range(3))
+        idx, cnt = asa.compute_lists(q, k, cfg, generator=make_generator(9, dev))
+        kf, vf = k.reshape(h, length, d), v.reshape(h, length, d)
+        records = pack_kv_pyramid(kf, vf)
+        want = _pack_kv_pyramid_reference(kf, vf)
+        record("pack_kv_pyramid", f"k,v [{h},{length},{d}] -> levels 1,2,4,8",
+               all(torch.equal(a, b) for a, b in zip(records, want)),
+               max(_max_err(a, b) for a, b in zip(records, want)),
+               _cuda_ms(torch, lambda: pack_kv_pyramid(kf, vf), 20),
+               _cuda_ms(torch, lambda: _pack_kv_pyramid_reference(kf, vf), 5), "bit exact",
+               main, 0.0, _nbytes(kf, vf, *records))
+        q_rows, scale = cfg.multilevel_q_rows, 1.0 / math.sqrt(d)
+        pairs = _multilevel_pairs(idx, cnt, length, length, q_rows)
+        _attn_check(torch, record, "multilevel_fwd",
+                    f"q [1,{h},{length},{d}] q_rows {q_rows} key share "
+                    f"{pairs / (h * float(length) ** 2):.4f}",
+                    lambda: multilevel_from_records(q, records, idx, cnt, length, q_rows,
+                                                    scale),
+                    lambda: multilevel_lists_attention(q, k, v, (idx, cnt), q_rows=q_rows,
+                                                       scale=scale),
+                    10, 1, main, 4.0 * d * pairs, _nbytes(q, *records, idx, cnt))
+        print(f"multilevel lists {preset.name}: cap {idx.shape[-1]}, mean counts per level "
+              f"{[round(float(c), 2) for c in cnt.float().mean(dim=(0, 1, 2))]}")
+
+    multilevel(C.COGVIDEOX_480P, True)
+    multilevel(C.WAN_480P, False)
+
+
+def check_dense_d64(torch, dev, checks):
+    """Phase 9, second half: the dense kernel at d = 64 against its plain
+    version at the CogVideoX-5B 480p predictor (V width 256) and dense-leg
+    shapes; the library call is one SDPA on the same inputs."""
+    from blade_torch.kernels.block_sparse_attn import flash_attention, flash_attention_wide_v
+    from blade_torch.kernels.ref_attention import dense_attention_with_lse
+    from blade_torch.utils.rng import make_generator
+
+    gen = make_generator(2025, dev)
+    record = _recorder(checks)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    h, d, length, tokens = COG_HEADS, COG_HEAD_DIM, COG_TOKENS, COG_SAMPLE
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    ls = -(-length // 128) * tokens
+    qs, ks = randn(1, h, ls, d), randn(1, h, ls, d)
+    pool = torch.nn.functional.one_hot(torch.arange(ls, device=dev) // tokens, 256)
+    pool = pool.to(torch.bfloat16).expand(1, h, ls, 256).contiguous()
+    _attn_check(torch, record, "dense_fwd",
+                f"cog predictor q,k [1,{h},{ls},{d}] v [1,{h},{ls},256]",
+                lambda: flash_attention_wide_v(qs, ks, pool),
+                lambda: dense_attention_with_lse(qs, ks, pool), 20, 3, False,
+                *_dense_work(qs, ks, pool), library=lambda: sdpa(qs, ks, pool))
+    q, k, v = (randn(1, h, length, d) for _ in range(3))
+    _attn_check(torch, record, "dense_fwd", f"cog dense leg q,k,v [1,{h},{length},{d}]",
+                lambda: flash_attention(q, k, v), lambda: dense_attention_with_lse(q, k, v),
+                3, 1, False, *_dense_work(q, k, v), library=lambda: sdpa(q, k, v))
+
+
+def serve_cog(torch, dev):
+    """Phase 10: two full-width, full-depth CogVideoX-5B 480p requests on the
+    multilevel lane, then one forward with dense attention."""
+    from blade_torch.cli.inference import build_pipeline, get_args, random_text_embeds
+    from blade_torch.models.layers import dense_attention_fn
+
+    args = get_args(["--preset", "cogvideox-5b-480p", "--random-init", "--seed", "8888",
+                     "--steps", "8"])
+    t0 = time.perf_counter()
+    pipe = build_pipeline(args)
+    torch.cuda.synchronize()
+    print(f"cogvideox pipeline built (random weights, seed 0, lane {pipe.mask_mode}) in "
+          f"{time.perf_counter() - t0:.2f} s; DiT params "
+          f"{sum(p.numel() for p in pipe.dit.parameters()) / 1e9:.3f} B")
+    assert pipe.mask_mode == "multilevel" and pipe.preset.dit.num_layers == 42
+    text = random_text_embeds(pipe, "a corgi surfing a wave at sunset")
+    assert text.shape == (1, 226, 4096)
+    results, launches, lat = _two_requests(torch, pipe, text, args.seed, args.steps,
+                                           (1, 49, 480, 720, 3))
+    n = 2 * pipe.preset.dit.num_layers * args.steps
+    for name, count in launches.items():
+        want = n if name in COG_KERNELS else 0
+        assert count == want, (name, count, want)
+
+    # One forward of the same model and weights with dense flash attention.
+    sparse_fn, pipe.dit.attention_fn = pipe.dit.attention_fn, dense_attention_fn
+    tstep = torch.full((1,), 999.0, device=dev)
+    try:
+        with torch.inference_mode():
+            pipe.dit(lat, tstep, text)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            v = pipe.dit(lat, tstep, text)
+            torch.cuda.synchronize()
+            dense_ms = 1000 * (time.perf_counter() - t)
+    finally:
+        pipe.dit.attention_fn = sparse_fn
+    assert torch.isfinite(v).all()
+    print(f"cogvideox dense-attention forward {dense_ms:.1f} ms; multilevel step "
+          f"{results[1]['step_ms']:.1f} ms (warm request)")
+    return results, launches, dense_ms
+
+
+def cog_reference_check(torch, dev):
+    """Phase 11: the CogVideoX model with kernels (bf16, card) against its
+    plain versions (f32, CPU) on a small input: 1024 video + 16 text tokens
+    (9 key blocks, 5 mask rows of 256), shared weights, the card's lists
+    replayed on the CPU."""
+    from blade_torch.attention.asa import ASAConfig
+    from blade_torch.attention.integration import asa_model_kwargs
+    from blade_torch.models.cogvideox_dit import COGVIDEOX_TINY, CogVideoXModel
+    from blade_torch.utils.rng import make_generator
+
+    asa_cfg = ASAConfig(latent_width=16, latent_height=16, latent_frames=4, text_length=16,
+                        mask_mode="multilevel", multilevel_q_rows=256)
+    card = CogVideoXModel(COGVIDEOX_TINY, dtype=torch.bfloat16, device=dev,
+                          **asa_model_kwargs(asa_cfg)).eval()
+    card.random_init_(make_generator(31, dev))
+    cpu = CogVideoXModel(COGVIDEOX_TINY, dtype=torch.float32, **asa_model_kwargs(asa_cfg))
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    g = torch.Generator().manual_seed(32)
+    x = torch.randn(1, 4, 16, 32, 32, generator=g)
+    text = torch.randn(1, 16, 64, generator=g)
+    t = torch.tensor([700.0])
+    with torch.inference_mode():
+        v_card, (idx, cnt) = card(x.to(dev), t.to(dev), text.to(dev),
+                                  attn_kwargs={"generator": make_generator(33, dev),
+                                               "collect_mask": True})
+        v_cpu = cpu(x, t, text, attn_kwargs={"masks": (idx.cpu(), cnt.cpu())})
+    err = (v_card.float().cpu() - v_cpu).abs().max().item()
+    scale = v_cpu.abs().max().item()
+    counts = cnt.float().mean(dim=(0, 1, 2, 3)).tolist()
+    print(f"cogvideox reference check: v max_abs_err {err:.4e} (bf16 kernels on the card vs "
+          f"f32 plain on the CPU, |ref| max {scale:.3f}, mean list counts per level "
+          f"{[round(c, 2) for c in counts]}, tol 5e-2*|ref|max)")
+    assert torch.isfinite(v_card).all() and idx.shape == (2, 1, 2, 5, 4, 128)
+    assert all(c > 0 for c in counts), counts
+    assert err <= 5e-2 * scale, (err, scale)
+    return err
+
+
 def main():
     try:
         import torch
@@ -525,27 +813,39 @@ def main():
     results, serve_launches, dense_ms = serve(torch, dev)
     ref_err = reference_check(torch, dev)
     check_backward(torch, dev, checks)
-    assert set(checks) == set(_build.KERNELS), (set(checks), set(_build.KERNELS))
     grad_err = gradient_check(torch, dev)
     trained, train_launches = train(torch, dev)
+    torch.cuda.empty_cache()
+    check_cog_multilevel(torch, dev, checks)
+    check_dense_d64(torch, dev, checks)
+    assert set(checks) == set(_build.KERNELS), (set(checks), set(_build.KERNELS))
+    cog_results, cog_launches, cog_dense_ms = serve_cog(torch, dev)
+    cog_ref_err = cog_reference_check(torch, dev)
 
-    warm = results[1]
+    warm, cog = results[1], cog_results[1]
     print("summary " + json.dumps(dict(
         card=smi, denoise_s=warm["denoise_s"], step_ms=warm["step_ms"],
         decode_s=warm["decode_s"], clip_s=warm["clip_s"], dense_step_ms=dense_ms,
         cold_clip_s=results[0]["clip_s"], reference_max_abs_err=ref_err,
         gradient_max_abs_err=grad_err, train_s_per_step=trained["s_per_step_warm"],
-        train_peak_mem_gib=trained["peak_mem_gib"])))
+        train_peak_mem_gib=trained["peak_mem_gib"],
+        cog_clip_s=cog["clip_s"], cog_denoise_s=cog["denoise_s"], cog_step_ms=cog["step_ms"],
+        cog_decode_s=cog["decode_s"], cog_dense_step_ms=cog_dense_ms,
+        cog_peak_mem_gib=max(r["peak_mem_gib"] for r in cog_results),
+        cog_cold_clip_s=cog_results[0]["clip_s"], cog_reference_max_abs_err=cog_ref_err)))
+    paths = {"serve_wan": serve_launches, "train_wan": train_launches,
+             "serve_cog": cog_launches}
     kernels = []
     for name, k in _build.KERNELS.items():
         main_check = next(c for c in checks[name] if c["main"])
         kernels.append(dict(
             name=name, route="cuda", source=k.source, replaces=k.replaces,
-            launches=serve_launches[name] + train_launches[name],
-            launches_by_path={"serve": serve_launches[name],
-                              "train": train_launches[name]},
+            launches=sum(p[name] for p in paths.values()),
+            launches_by_path={path: p[name] for path, p in paths.items()},
             max_abs_err=max(c["max_abs_err"] for c in checks[name]),
             ms=main_check["ms"], plain_ms=main_check["plain_ms"],
+            bound_ms=main_check["bound_ms"], bound_by=main_check["bound_by"],
+            library_ms=main_check["library_ms"],
             shape=main_check["shape"], checks=checks[name]))
     print(json.dumps({"kernels": kernels}))
     print(_nvidia_smi())

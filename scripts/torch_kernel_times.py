@@ -1,0 +1,52 @@
+#!/usr/bin/env python3
+"""Forward-kernel times of the PyTorch port on one NVIDIA GPU: ``chip_smoke.py``'s
+forward-kernel checks alone (phases 3 and 9: each kernel against its plain
+version at the main-path shapes of Wan2.1-1.3B 480p and CogVideoX-5B 480p).
+
+    python3 scripts/torch_kernel_times.py
+
+Imports ``blade_torch`` from ``PYTHONPATH`` first, so pointing
+``PYTHONPATH`` at another checkout times that checkout's kernels with this
+checkout's checks; run two checkouts in turns in one session to compare them
+on one card.  A check whose modules the package lacks is reported and
+skipped.  Prints one JSON line per check (CUDA-event means) and the card's
+name and power limit.
+"""
+
+import importlib.util
+import json
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("needs an NVIDIA GPU")
+    sys.path.append(ROOT)
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    import blade_torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, checks = torch.device("cuda"), {}
+    for phase in (smoke.check_kernels, smoke.check_dense_d64, smoke.check_cog_multilevel):
+        try:
+            phase(torch, dev, checks)
+        except ImportError as e:
+            print(f"{phase.__name__}: not in this package ({e})", flush=True)
+    package = os.path.dirname(blade_torch.__file__)
+    for kernel, rows in checks.items():
+        for c in rows:
+            print(json.dumps({"kernel": kernel, "shape": c["shape"], "ms": c["ms"],
+                              "plain_ms": c["plain_ms"], "library_ms": c["library_ms"],
+                              "max_abs_err": c["max_abs_err"], "package": package}))
+    print(smoke._nvidia_smi(), flush=True)
+
+
+if __name__ == "__main__":
+    main()

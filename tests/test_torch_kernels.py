@@ -26,8 +26,10 @@ from blade_torch.kernels.block_sparse_attn import (
     flash_attention,
     flash_attention_wide_v,
 )
+from blade_torch.attention.masks import multilevel_lists
+from blade_torch.kernels.multilevel_attn import multilevel_attention
 from blade_torch.kernels.norm_rope import _norm_rope_reference, norm_rope_heads
-from blade_torch.kernels.pack import pack_kv
+from blade_torch.kernels.pack import pack_kv, pack_kv_pyramid
 
 ATOL = 2e-5
 
@@ -170,8 +172,12 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
         q, k, v, torch.ones(1, 1, 1, 1, dtype=torch.bool))
     sum(o.sum() for o in outs).backward()  # the backward too
     pack_kv(k[0].detach(), v[0].detach())
+    pack_kv_pyramid(k[0].detach(), v[0].detach())
+    with torch.no_grad():
+        multilevel_attention(q, k, v, lists=multilevel_lists(torch.rand(1, 1, 1, 1), cap=128))
     assert set(_build.KERNELS) == {"dense_fwd", "sparse_fwd", "pack_kv", "norm_rope",
-                                   "dense_dq", "dense_dkv", "sparse_dq", "sparse_dkv"}
+                                   "dense_dq", "dense_dkv", "sparse_dq", "sparse_dkv",
+                                   "pack_kv_pyramid", "multilevel_fwd"}
     assert all(kern.launches == 0 for kern in _build.KERNELS.values())
 
 

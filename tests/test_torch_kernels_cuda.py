@@ -6,7 +6,8 @@ Marked ``cuda``: skipped without a GPU.  On the card run
 machines need not have).  Inputs are bf16 on the card, as on the main path.
 Tolerances: attention outputs 2e-2 absolute (bf16 output rounding and the
 kernel's bf16 P @ V at |out| <~ 4), lse 5e-3 (f32 sums in another order),
-norm_rope 2e-2 (bf16 output rounding), pack bit for bit.  The backward
+norm_rope 2e-2 (bf16 output rounding), both pack modes bit for bit (the
+pyramid pools in f32 in the same order as its plain version).  The backward
 kernels are held to 2e-2 * max |ref| per gradient against the plain
 backward: p and ds are rounded to bf16 before each product (relative
 2^-9 a term) and the gradients to bf16 on output.
@@ -24,13 +25,21 @@ from blade_torch.kernels.block_sparse_attn import (
     flash_attention,
     flash_attention_wide_v,
 )
+from blade_torch.attention.masks import multilevel_lists
+from blade_torch.kernels.multilevel_attn import multilevel_attention
 from blade_torch.kernels.norm_rope import _norm_rope_reference, norm_rope_heads
-from blade_torch.kernels.pack import _pack_kv_reference, pack_kv
+from blade_torch.kernels.pack import (
+    _pack_kv_pyramid_reference,
+    _pack_kv_reference,
+    pack_kv,
+    pack_kv_pyramid,
+)
 from blade_torch.kernels.ref_attention import (
     NEG_INF,
     attention_backward_reference,
     block_masked_attention,
     dense_attention_with_lse,
+    multilevel_lists_attention,
 )
 
 pytestmark = pytest.mark.cuda
@@ -103,6 +112,62 @@ def test_pack_kernel_bit_exact(dev, lk, d):
     got = pack_kv(k, v)
     torch.cuda.synchronize()
     assert torch.equal(got, _pack_kv_reference(k, v))
+
+
+@pytest.mark.parametrize("bh,lk,d", [(3, 300, 64), (2, 450, 128), (1, 17776, 64),
+                                     (2, 256, 128)])
+def test_pyramid_pack_kernel_bit_exact(dev, bh, lk, d):
+    gen = torch.Generator(device=dev).manual_seed(lk * 3 + d)
+    k, v = _rand(gen, bh, lk, d, dev=dev), _rand(gen, bh, lk, d, dev=dev)
+    before = _build.KERNELS["pack_kv_pyramid"].launches
+    got = pack_kv_pyramid(k, v)
+    torch.cuda.synchronize()
+    assert _build.KERNELS["pack_kv_pyramid"].launches == before + 1
+    for level, g, w in zip((1, 2, 4, 8), got, _pack_kv_pyramid_reference(k, v)):
+        assert torch.equal(g, w), f"level {level}"
+
+
+ML_RATIOS = {1: (0.0, 0.25), 2: (0.25, 0.5), 4: (0.5, 0.75), 8: (0.75, 0.9), 0: (0.9, 1.0)}
+
+
+@pytest.mark.parametrize("l,d,q_rows,ratios,cap", [
+    (900, 64, 128, ML_RATIOS, 128),     # ragged, every level, q_rows 128
+    (1100, 128, 256, ML_RATIOS, 128),   # d 128, q_rows 256
+    (1288, 64, 256, None, 256),         # the default bands; JAX's cog list cap
+    (4000, 128, 128, None, 128),        # 32 key blocks
+    (640, 64, 256, ML_RATIOS, 128),     # whole blocks, text-free
+])
+def test_multilevel_kernel_matches_plain(dev, l, d, q_rows, ratios, cap):
+    """Forced last-two rows, one empty row and ragged tails included; the
+    plain version runs on the same bf16 inputs (and the same bf16-rounded
+    pyramid) in f32."""
+    gen = torch.Generator(device=dev).manual_seed(l + d + q_rows)
+    q, k, v = (_rand(gen, 1, 2, l, d, dev=dev) for _ in range(3))
+    n_q, n_kt = -(-l // q_rows), -(-l // 128)
+    scores = torch.rand((1, 2, n_q, n_kt), generator=gen, device=dev)
+    idx, cnt = multilevel_lists(scores, ratios, cap=cap)
+    cnt[0, 1, 0] = 0  # an empty row
+    names = ("multilevel_fwd", "pack_kv_pyramid")
+    before = [_build.KERNELS[n].launches for n in names]
+    out, lse = multilevel_attention(q, k, v, lists=(idx, cnt), q_rows=q_rows)
+    torch.cuda.synchronize()
+    assert [_build.KERNELS[n].launches for n in names] == [b + 1 for b in before]
+    ref_out, ref_lse = multilevel_lists_attention(q, k, v, (idx, cnt), q_rows=q_rows)
+    assert torch.isfinite(out.float()).all()
+    assert _err(out, ref_out) <= OUT_TOL
+    assert _err(lse, ref_lse) <= LSE_TOL
+    assert out[0, 1, :q_rows].abs().max().item() == 0.0
+    assert lse[0, 1, :q_rows].max().item() == torch.tensor(NEG_INF).item()
+
+
+def test_multilevel_is_forward_only(dev):
+    q = torch.randn(1, 1, 256, 64, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    lists = multilevel_lists(torch.rand(1, 1, 2, 2, device=dev), cap=128)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        multilevel_attention(q, q, q, lists=lists)
+    with torch.no_grad():
+        out, _ = multilevel_attention(q, q, q, lists=lists)
+    assert torch.isfinite(out.float()).all()
 
 
 @pytest.mark.parametrize("s,dim,heads", [(504, 1536, 12), (100, 256, 2), (64, 128, 2)])
