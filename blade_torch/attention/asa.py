@@ -12,10 +12,13 @@ Counterpart of ``blade/attention/asa.py``:
      block-sparse flash attention over it, branch B dense flash attention
      against ``sample_gap``-mean-pooled K/V with a ``+log(sample_gap)``
      bias, merged exactly by LSE.
-     Multilevel lane (CogVideoX serving): the scores, mean-pooled to
-     ``multilevel_q_rows`` query rows, rank each row's key blocks into
-     levels {1, 2, 4, 8, 0} by percentile bands; the per-level lists drive
-     the multi-level kernel.
+     Multilevel lane (CogVideoX serving, ``--mask_mode multilevel``): the
+     scores rank each row's key blocks into levels {1, 2, 4, 8, 0} by
+     percentile bands.  Where the fused lane covers the geometry
+     (``fused_supported``) the scores are mean-pooled to
+     ``multilevel_q_rows`` query rows and the per-level lists drive the
+     fused multi-level kernel; elsewhere (e.g. Wan2.1-14B 720p) the int
+     level mask at 128-row granularity drives the per-level lane.
   4. Restore the token order.
 
 Randomness (the predictor's token subsampling) comes from an explicit
@@ -184,7 +187,7 @@ def adaptive_sparse_attention(
 
     ``mask``: optional precomputed mask artifact (cross-step reuse skips the
     predictor): the energy mask, or on the multilevel lane an ``(idx,
-    counts)`` lists tuple.  Returns ``(out,
+    counts)`` lists tuple (fused lane) or an int level mask.  Returns ``(out,
     sparsity)``: ``1 - mask.mean() - 1/sample_gap`` on the energy lane,
     ``1 - sum over levels of band / L`` on the multilevel lane.
     """
@@ -211,11 +214,19 @@ def adaptive_sparse_attention(
     return out.to(q.dtype), sparsity
 
 
-def _multilevel_lane(q, k, v, cfg, lists, generator, offsets):
-    # multilevel_attention raises for geometries only the per-level lane covers
-    if lists is None:
-        lists = compute_lists(q, k, cfg, generator=generator, offsets=offsets)
-    out, _ = multilevel_attention(q, k, v, lists=tuple(lists), q_rows=cfg.multilevel_q_rows)
+def _multilevel_lane(q, k, v, cfg, mask, generator, offsets):
+    # An (idx, counts) tuple drives the fused lane; an int level mask carries
+    # its row granularity in its shape (JAX asa.py:264-271).
+    if mask is None:
+        mask = (compute_lists if _fused_lane_supported(cfg, q, k) else compute_mask)(
+            q, k, cfg, generator=generator, offsets=offsets)
+    if isinstance(mask, (tuple, list)):
+        out, _ = multilevel_attention(q, k, v, lists=tuple(mask),
+                                      q_rows=cfg.multilevel_q_rows)
+    else:
+        n128 = -(-q.shape[2] // BLOCK)
+        q_rows = BLOCK * -(-n128 // mask.shape[-2])
+        out, _ = multilevel_attention(q, k, v, mask, q_rows=q_rows)
     ratios = cfg.mask_ratios or M.DEFAULT_MASK_RATIOS
     density = sum((hi - lo) / lv for lv, (lo, hi) in ratios.items() if lv != 0)
     return out, 1.0 - density
@@ -237,8 +248,8 @@ def asa_attention(
     ``q, k, v``: ``[B, H, text_length + video_tokens, D]`` with the text
     segment first (``text_length == 0`` for Wan).  ``mask``/``return_mask``
     support cross-step mask reuse (masks live in arranged-token
-    coordinates; on the multilevel lane the artifact is the ``(idx,
-    counts)`` lists tuple).
+    coordinates; on the fused multilevel lane the artifact is the ``(idx,
+    counts)`` lists tuple, on the per-level lane the int level mask).
     Returns ``(out, sparsity[, mask])``.
     """
     rearrange = not cfg.pre_arranged
@@ -248,7 +259,7 @@ def asa_attention(
         k = gilbert.rearrange_tokens(k, perm, cfg.text_length)
         v = gilbert.rearrange_tokens(v, perm, cfg.text_length)
     if mask is None:
-        mask = (compute_lists if cfg.mask_mode == "multilevel" else compute_mask)(
+        mask = (compute_lists if _fused_lane_supported(cfg, q, k) else compute_mask)(
             q, k, cfg, generator=generator, offsets=offsets)
     out, sparsity = adaptive_sparse_attention(q, k, v, cfg, mask=mask)
     if rearrange:

@@ -10,6 +10,8 @@ Examples:
       --prompt "a cat surfing" --steps 8 --output_dir outputs/
   python -m blade_torch.cli.inference --preset cogvideox-5b-480p --random-init \\
       --prompt "a cat surfing" --steps 8 --output_dir outputs/
+  python -m blade_torch.cli.inference --preset wan-14b-720p --mask_mode multilevel \\
+      --random-init --prompt "a cat surfing" --steps 8 --output_dir outputs/
   python -m blade_torch.cli.inference --family cogvideox --tiny --random-init \\
       --device cpu --prompt "a cat surfing" --steps 2
 """
@@ -45,7 +47,7 @@ def get_args(argv=None):
     p.add_argument("--tiny", action="store_true", help="tiny CPU preset")
     p.add_argument("--preset", type=str, default=None,
                    help="named preset (overrides --family/--tiny): wan-1.3b-480p, "
-                        "cogvideox-5b-480p, wan-tiny, cogvideox-tiny")
+                        "wan-14b-720p, cogvideox-5b-480p, wan-tiny, cogvideox-tiny")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda)")
     return p.parse_args(argv)

@@ -21,9 +21,10 @@ from blade_torch.models.vae_cogvideox import (
     CogVideoXVAEConfig,
 )
 from blade_torch.models.vae_wan import WAN21_VAE, WAN21_VAE_TINY, WanVAEConfig
-from blade_torch.models.wan_dit import WAN_1_3B, WAN_TINY, WanConfig
+from blade_torch.models.wan_dit import WAN_1_3B, WAN_14B, WAN_TINY, WanConfig
 
-__all__ = ["VideoSpec", "FamilyPreset", "WAN_480P", "WAN_TINY_PRESET", "COGVIDEOX_480P",
+__all__ = ["VideoSpec", "FamilyPreset", "WAN_480P", "WAN_14B_720P", "WAN_TINY_PRESET",
+           "COGVIDEOX_480P",
            "COGVIDEOX_TINY_PRESET", "PRESETS", "derive_asa_config", "default_mask_mode"]
 
 
@@ -96,6 +97,16 @@ WAN_480P = FamilyPreset(
     video=VideoSpec(81, 480, 832, fps=16), flow_shift=3.0,
     sample_gap=30, max_retain_ratio=0.2, asa_multilevel_q_rows=256,
 )
+# Wan2.1-T2V-14B at its native 720p: 81 frames of 720x1280 -> 21x45x80
+# latents = 75 600 tokens in 591 key blocks, past the fused multilevel
+# lane's 256, so ``--mask_mode multilevel`` runs the per-level lane; flow
+# shift 5.0 is the diffusers recommendation for 720p.  Its 14.3 B weights
+# take 28.6 GB in bf16 and fit one 80 GB H100.
+WAN_14B_720P = FamilyPreset(
+    name="wan", dit=WAN_14B, vae=WAN21_VAE, text_dim=4096, max_text_len=512,
+    video=VideoSpec(81, 720, 1280, fps=16), flow_shift=5.0,
+    sample_gap=30, max_retain_ratio=0.2, asa_multilevel_q_rows=128,
+)
 # CogVideoX-5B: 49 frames 480x720 -> 13x30x45 latents (17 550 video tokens)
 # + 226 T5 tokens.
 COGVIDEOX_480P = FamilyPreset(
@@ -119,6 +130,7 @@ COGVIDEOX_TINY_PRESET = FamilyPreset(
 
 PRESETS = {
     "wan-1.3b-480p": WAN_480P,
+    "wan-14b-720p": WAN_14B_720P,
     "wan-tiny": WAN_TINY_PRESET,
     "cogvideox-5b-480p": COGVIDEOX_480P,
     "cogvideox-tiny": COGVIDEOX_TINY_PRESET,

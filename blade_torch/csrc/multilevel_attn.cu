@@ -26,49 +26,11 @@
 // FUSED_ROWS grouping, single-shot merged tile, band-sized pooled tiles,
 // level-2 DMA pipeline and 8-sublane list layout are TPU tilings of the same
 // function and are not carried over.  Synchronous loads (no cp.async / TMA,
-// no wgmma) in this first version.
+// no wgmma) in this first version.  The pooled-level walk (walk_pooled) is
+// in flash_tile.cuh, shared with pooled_level_attn.cu.
 #include "flash_tile.cuh"
 
 namespace bt {
-
-// One pooled level: SEG = 128 / L pooled rows per block, SPT segments a
-// tile.  `pyr` is this head's level-L records, `lst` / `cnt` its list.
-template <int D, int SEG>
-__device__ __forceinline__ void walk_pooled(WarpState<D, D>& st, bf16* ks, bf16* vs,
-                                            const bf16* pyr, const int* lst, int cnt,
-                                            int pooled_len, float c, float b2) {
-  constexpr int SPT = BN / SEG;
-  constexpr int VPR = D / 8;
-  for (int j0 = 0; j0 < cnt; j0 += SPT) {
-    int blk[SPT];
-    unsigned long long valid = 0ull;
-#pragma unroll
-    for (int u = 0; u < SPT; ++u) {
-      blk[u] = j0 + u < cnt ? lst[j0 + u] : -1;
-      if (blk[u] >= 0)
-        valid |= prefix_valid(min(SEG, pooled_len - blk[u] * SEG)) << (u * SEG);
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < BN * VPR; i += NTHREADS) {
-      const int r = i / VPR, cc = i % VPR;
-      const int u = r / SEG, row = r % SEG;
-      int b = blk[0];
-#pragma unroll
-      for (int w = 1; w < SPT; ++w)
-        if (u == w) b = blk[w];
-      uint4 kq = make_uint4(0u, 0u, 0u, 0u), vq = kq;
-      if (b >= 0) {
-        const bf16* src = pyr + ((size_t)b * 2 * SEG + row) * D + cc * 8;
-        kq = *reinterpret_cast<const uint4*>(src);
-        vq = *reinterpret_cast<const uint4*>(src + SEG * D);
-      }
-      *reinterpret_cast<uint4*>(ks + r * (D + 8) + cc * 8) = kq;
-      *reinterpret_cast<uint4*>(vs + r * (D + 8) + cc * 8) = vq;
-    }
-    __syncthreads();
-    attend_tile<D, D>(st, ks, vs, valid, c, b2);
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(NTHREADS)

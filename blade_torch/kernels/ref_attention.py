@@ -27,6 +27,7 @@ __all__ = [
     "merge_attention",
     "mean_pool_kv",
     "pool_pyramid",
+    "pooled_level_attention_reference",
     "multilevel_block_attention_reference",
     "lists_to_level_masks",
     "multilevel_lists_attention",
@@ -194,6 +195,30 @@ def pool_pyramid(x: torch.Tensor):
         p = (y[..., 0, :] + y[..., 1, :]) * 0.5
         out.append(p)
     return out
+
+
+def pooled_level_attention_reference(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    block_mask: torch.Tensor,
+    *,
+    level: int,
+    scale: float,
+    pooled_valid_len: int,
+):
+    """One pooled level of multi-level attention: the plain version of the
+    pooled-level kernel (``csrc/pooled_level_attn.cu``).
+
+    ``k_pool, v_pool [..., Lp, D]``: the level-``level`` mean-pooled K/V,
+    whose ``128 // level``-row segment ``b`` stands for key block ``b``;
+    ``block_mask`` bool ``[..., ceil(Lq/128), n_k]``.  Pooled rows at or
+    past ``pooled_valid_len`` are masked and every score gets ``+log(level)``.
+    Returns ``(out, lse)``; a row with no key gets out 0 and lse ``NEG_INF``.
+    """
+    return block_masked_attention(
+        q, k_pool[..., :pooled_valid_len, :], v_pool[..., :pooled_valid_len, :], block_mask,
+        block_k=128 // level, scale=scale, bias=float(math.log(level)))
 
 
 def multilevel_block_attention_reference(

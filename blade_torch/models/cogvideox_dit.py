@@ -8,9 +8,10 @@ segment only, LayerNormZero AdaLN (shift/scale/gate for video and text),
 GELU(tanh) FFN over the joint sequence, AdaLN head.  Latents are
 ``[B, T, C, H, W]``; the output is the v-prediction (f32).
 
-Numerics follow the JAX model: parameters f32; projections in ``dtype``
-(bf16 on the card); LayerNorms, modulation, gates, the time embedding and
-``proj_out`` in f32; the residual streams in ``dtype``.  The q/k
+Numerics follow the JAX model: projections in ``dtype`` (bf16 on the card),
+their weights stored in it (``layers.Linear``); LayerNorms, modulation,
+gates, the time embedding and ``proj_out`` in f32 with f32 parameters; the
+residual streams in ``dtype``.  The q/k
 ``deinterleave_perm`` is folded into ``to_q``/``to_k`` and ``norm_q``/
 ``norm_k`` once at load time, so RoPE runs in the rotate-half form.
 

@@ -1,10 +1,12 @@
 """Shared building blocks for the port's video DiT.
 
 Counterpart of ``blade/models/layers.py``.  Conventions kept from the JAX
-package: parameters are f32; ``Linear`` layers compute in the module's
-``dtype`` (bf16 on the card) while norms, softmax, modulation and the time
-embedding run in f32; rotary tables are static per geometry.  Parameter
-names follow the diffusers state-dict layout.
+package: ``Linear`` layers compute in the module's ``dtype`` (bf16 on the
+card) while norms, softmax, modulation and the time embedding run in f32;
+rotary tables are static per geometry.  Parameter names follow the
+diffusers state-dict layout.  Parameters are f32, except that a ``Linear``
+stores its weight and bias in the dtype it computes in (see
+:class:`Linear`).
 """
 
 from __future__ import annotations
@@ -35,13 +37,20 @@ __all__ = [
 
 
 class Linear(nn.Linear):
-    """``nn.Linear`` with f32 parameters that computes in ``compute_dtype``
-    (inputs, weight and bias cast, like flax ``Dense(dtype=...)``)."""
+    """``nn.Linear`` that computes in ``compute_dtype`` (inputs cast, like
+    flax ``Dense(dtype=bf16, param_dtype=f32)``) and stores its weight and
+    bias in that dtype.  The forward rounds f32 parameters to
+    ``compute_dtype`` anyway, so storing them rounded gives bit-identical
+    results: loading an f32 state dict rounds on copy, and random init
+    draws in f32 first (:func:`init_lecun_`).  A bf16 layer thus holds half
+    the bytes of f32 and needs no cast a call; an f32 layer (time
+    embedding, modulation projection, ``proj_out``) keeps f32.  A parameter
+    substituted through ``torch.func.functional_call`` is still cast."""
 
     def __init__(self, in_features, out_features, bias=True, *,
                  compute_dtype=torch.bfloat16, device=None):
         super().__init__(in_features, out_features, bias=bias, device=device,
-                         dtype=torch.float32)
+                         dtype=compute_dtype)
         self.compute_dtype = compute_dtype
 
     def forward(self, x):
@@ -271,10 +280,13 @@ def dense_attention_fn(q, k, v, **_):
 def init_lecun_(module: nn.Module, generator: torch.Generator) -> None:
     """Random init matching flax's defaults: every Linear / Conv weight
     ``N(0, 1/fan_in)`` (lecun normal), biases zero.  Norm scales and other
-    parameters are left to their module's own init."""
+    parameters are left to their module's own init.  The draws are f32 and
+    rounded to a weight stored in another dtype, so the same generator
+    gives the same model whatever the storage."""
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Conv2d, nn.Conv3d)):
             fan_in = m.weight[0].numel()
-            m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
+            w = torch.empty(m.weight.shape, dtype=torch.float32, device=m.weight.device)
+            m.weight.copy_(w.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator))
             if m.bias is not None:
                 m.bias.zero_()

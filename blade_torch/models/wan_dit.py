@@ -6,9 +6,10 @@ AdaLN with a 6-way modulation table, video self-attention with 3-D RoPE and
 RMS q/k norm, text cross-attention, GELU(tanh) FFN, modulated head.  The
 model output is the flow-matching velocity.
 
-Numerics follow the JAX model: parameters f32; projections in ``dtype``
-(bf16 on the card); LayerNorms, modulation, gates, the time embedding and
-``proj_out`` in f32; the residual stream in ``dtype``.
+Numerics follow the JAX model: projections in ``dtype`` (bf16 on the card),
+their weights stored in it (``layers.Linear``); LayerNorms, modulation,
+gates, the time embedding and ``proj_out`` in f32 with f32 parameters; the
+residual stream in ``dtype``.
 
 Self-attention q/k run with the ``deinterleave_perm`` channel permutation
 folded into ``to_q``/``to_k`` and ``norm_q``/``norm_k`` once at load time, so
@@ -47,7 +48,7 @@ from blade_torch.models.layers import (
     rope_3d_tables,
 )
 
-__all__ = ["WanConfig", "WanModel", "WAN_1_3B", "WAN_TINY"]
+__all__ = ["WanConfig", "WanModel", "WAN_1_3B", "WAN_14B", "WAN_TINY"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +71,9 @@ class WanConfig:
 
 
 WAN_1_3B = WanConfig()
+# Wan2.1-T2V-14B (the Wan-AI/Wan2.1-T2V-14B-Diffusers transformer config):
+# 40 blocks of width 5120, 40 heads of 128, FFN 13824.
+WAN_14B = WanConfig(dim=5120, ffn_dim=13824, num_layers=40, num_heads=40)
 WAN_TINY = WanConfig(dim=128, ffn_dim=256, num_layers=2, num_heads=2, text_dim=64,
                      freq_dim=32)
 

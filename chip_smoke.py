@@ -49,14 +49,31 @@ no result):
    kernel), then one dense-attention forward for ``dense_step_ms``;
 11. a small-input reference check of the CogVideoX model: kernels (bf16,
    card) against plain versions (f32, CPU) with shared weights and the
-   card's lists replayed.
+   card's lists replayed;
+12. the pooled-level kernel against its plain version at Wan2.1-14B 720p
+   shapes (B=1, H=40, d=128, L=75600, a level mask from the real predictor),
+   once for each of levels 2, 4 and 8; then the whole per-level multilevel
+   lane and dense flash attention at that shape, timed;
+13. the Wan2.1-14B serving path: the full-width, full-depth
+   ``wan-14b-720p`` preset with ``--mask_mode multilevel`` (40 blocks, dim
+   5120, 40 heads of 128, 591 key blocks: the per-level lane) on random
+   weights, bf16 projections, serves one request after a warm-up forward
+   (8 UniPC steps, flow shift 5, CFG 1, f32 streaming VAE decode, uint8
+   frames ``(1, 81, 720, 1280, 3)``), with exact launch counts (320 each of
+   the dense, sparse, pack and pyramid-pack kernels, 640 norm_rope, 960
+   pooled-level; no other kernel) and the peak memory of the denoise and
+   of the decode apart, then one dense-attention forward of the same module;
+14. a small-input reference check of the per-level lane: a 2-layer Wan with
+   one head of 128 over 273 key blocks, kernels (bf16, card) against plain
+   versions (f32, CPU), shared weights, the card's int level masks replayed.
 
 The second-to-last line is the card's ``name, power.limit``; before it, one
-JSON line with the per-kernel results (``launches`` sums the three paths,
+JSON line with the per-kernel results (``launches`` sums the four paths,
 each counted from zero; ``launches_by_path`` splits them); the last line is
 the result object.
 """
 
+import gc
 import json
 import math
 import os
@@ -148,20 +165,24 @@ def _block_pairs(mask, lq, lk):
     return float((mask.double() * rows[:, None] * keys[None, :]).sum())
 
 
-def _multilevel_pairs(idx, cnt, lq, lk, q_rows):
-    """Query-key pairs the multi-level lists select: level-L keys are pooled
-    rows, those past ``ceil(lk / L)`` and rows past ``lq`` excluded."""
+def _level_pairs(idx, cnt, lq, lk, level, q_rows):
+    """Query-key pairs one level's lists select (``idx [..., n_q, cap]``,
+    ``cnt [..., n_q]``): level-L keys are pooled rows, those past
+    ``ceil(lk / L)`` and rows past ``lq`` excluded."""
     import torch
 
-    n_q, cap = idx.shape[-3], idx.shape[-1]
+    n_q, cap = idx.shape[-2], idx.shape[-1]
     rows = (lq - q_rows * torch.arange(n_q, device=idx.device)).clamp(max=q_rows)
-    total = 0.0
-    for li, level in enumerate((1, 2, 4, 8)):
-        seg = 128 // level
-        keys = (-(-lk // level) - seg * idx[..., li, :].long()).clamp(0, seg)
-        live = torch.arange(cap, device=idx.device) < cnt[..., li, None]
-        total += float(((keys * live).sum(-1).double() * rows).sum())
-    return total
+    seg = 128 // level
+    keys = (-(-lk // level) - seg * idx.long()).clamp(0, seg)
+    live = torch.arange(cap, device=idx.device) < cnt[..., None]
+    return float(((keys * live).sum(-1).double() * rows).sum())
+
+
+def _multilevel_pairs(idx, cnt, lq, lk, q_rows):
+    """Query-key pairs the four per-level lists select (levels 1, 2, 4, 8)."""
+    return sum(_level_pairs(idx[..., li, :], cnt[..., li], lq, lk, level, q_rows)
+               for li, level in enumerate((1, 2, 4, 8)))
 
 
 # Attention tolerances.  out: max |err| <= 2e-2 * max |ref|, held against the
@@ -289,10 +310,11 @@ def check_kernels(torch, dev, checks):
            "2e-2+1e-2|ref|", True, 0.0, _nbytes(x, scale, cos, sin, got))
 
 
-def _two_requests(torch, pipe, text, seed, steps, frames_shape):
-    """Two requests through ``T2VPipeline.generate`` with the kernels' launch
+def _requests(torch, pipe, text, seed, steps, frames_shape, n=2):
+    """``n`` requests through ``T2VPipeline.generate`` with the kernels' launch
     counters zeroed just before and read just after; per request the host
-    times of the whole clip, the denoise and the decode, and peak memory."""
+    times of the whole clip, the denoise and the decode, and peak memory
+    over the request and over its denoise and its decode apart."""
     from blade_torch.kernels._build import KERNELS, reset_launch_counts
     from blade_torch.utils.rng import make_generator
 
@@ -301,46 +323,48 @@ def _two_requests(torch, pipe, text, seed, steps, frames_shape):
     timed = {}
     sample_latents, decode_latents = pipe.sample_latents, pipe.decode_latents
 
-    def timed_sample(*a, **kw):
-        t = time.perf_counter()
-        lat = sample_latents(*a, **kw)
-        torch.cuda.synchronize()
-        timed["denoise_s"] = time.perf_counter() - t
-        timed["latents_finite"] = bool(torch.isfinite(lat).all())
-        timed["latents"] = lat
-        return lat
+    def timed_half(name, fn):
+        def run(*a, **kw):
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            timed[f"{name}_s"] = time.perf_counter() - t
+            timed[f"{name}_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            timed[name] = out
+            return out
 
-    def timed_decode(*a, **kw):
-        t = time.perf_counter()
-        out = decode_latents(*a, **kw)
-        torch.cuda.synchronize()
-        timed["decode_s"] = time.perf_counter() - t
-        return out
+        return run
 
-    pipe.sample_latents, pipe.decode_latents = timed_sample, timed_decode
+    pipe.sample_latents = timed_half("denoise", sample_latents)
+    pipe.decode_latents = timed_half("decode", decode_latents)
     results = []
     reset_launch_counts()
-    for i in range(2):
-        torch.cuda.reset_peak_memory_stats()
-        t = time.perf_counter()
-        frames = pipe.generate(text, generator=make_generator(seed + i, dev), num_steps=steps)
-        u8 = pipe.frames_to_uint8(frames)
-        torch.cuda.synchronize()
-        clip_s = time.perf_counter() - t
-        assert u8.shape == frames_shape and u8.dtype == torch.uint8, u8.shape
-        assert timed["latents_finite"], "non-finite latents"
-        assert torch.isfinite(frames).all()
-        r = dict(request=i, denoise_s=timed["denoise_s"],
-                 step_ms=1000 * timed["denoise_s"] / steps,
-                 decode_s=timed["decode_s"], clip_s=clip_s,
-                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-                 frames_mean=float(u8.float().mean()), frames_std=float(u8.float().std()))
-        print("request " + json.dumps(r))
-        results.append(r)
+    try:
+        for i in range(n):
+            t = time.perf_counter()
+            frames = pipe.generate(text, generator=make_generator(seed + i, dev), num_steps=steps)
+            u8 = pipe.frames_to_uint8(frames)
+            torch.cuda.synchronize()
+            clip_s = time.perf_counter() - t
+            assert u8.shape == frames_shape and u8.dtype == torch.uint8, u8.shape
+            assert torch.isfinite(timed["denoise"]).all(), "non-finite latents"
+            assert torch.isfinite(frames).all()
+            r = dict(request=i, denoise_s=timed["denoise_s"],
+                     step_ms=1000 * timed["denoise_s"] / steps,
+                     decode_s=timed["decode_s"], clip_s=clip_s,
+                     peak_mem_gib=max(timed["denoise_peak_gib"], timed["decode_peak_gib"],
+                                      torch.cuda.max_memory_allocated() / 2**30),
+                     denoise_peak_gib=timed["denoise_peak_gib"],
+                     decode_peak_gib=timed["decode_peak_gib"],
+                     frames_mean=float(u8.float().mean()), frames_std=float(u8.float().std()))
+            print("request " + json.dumps(r))
+            results.append(r)
+    finally:
+        del pipe.sample_latents, pipe.decode_latents  # back to the class's methods
     launches = {name: k.launches for name, k in KERNELS.items()}
-    print("launches over the two requests " + json.dumps(launches))
-    pipe.sample_latents, pipe.decode_latents = sample_latents, decode_latents
-    return results, launches, timed["latents"]
+    print(f"launches over the {n} request(s) " + json.dumps(launches))
+    return results, launches, timed["denoise"]
 
 
 def serve(torch, dev):
@@ -357,8 +381,8 @@ def serve(torch, dev):
           f"DiT params {sum(p.numel() for p in pipe.dit.parameters()) / 1e9:.3f} B")
     text = random_text_embeds(pipe, "a corgi surfing a wave at sunset")
     assert text.shape == (1, 512, 4096)
-    results, launches, lat = _two_requests(torch, pipe, text, args.seed, args.steps,
-                                           (1, 81, 480, 832, 3))
+    results, launches, lat = _requests(torch, pipe, text, args.seed, args.steps,
+                                       (1, 81, 480, 832, 3))
     L, steps = pipe.preset.dit.num_layers, args.steps
     per_clip = {"norm_rope": 2 * L * steps, "sparse_fwd": L * steps, "pack_kv": L * steps}
     for name, n in per_clip.items():
@@ -715,8 +739,8 @@ def serve_cog(torch, dev):
     assert pipe.mask_mode == "multilevel" and pipe.preset.dit.num_layers == 42
     text = random_text_embeds(pipe, "a corgi surfing a wave at sunset")
     assert text.shape == (1, 226, 4096)
-    results, launches, lat = _two_requests(torch, pipe, text, args.seed, args.steps,
-                                           (1, 49, 480, 720, 3))
+    results, launches, lat = _requests(torch, pipe, text, args.seed, args.steps,
+                                       (1, 49, 480, 720, 3))
     n = 2 * pipe.preset.dit.num_layers * args.steps
     for name, count in launches.items():
         want = n if name in COG_KERNELS else 0
@@ -779,6 +803,165 @@ def cog_reference_check(torch, dev):
     return err
 
 
+def check_wan14b_pooled(torch, dev, checks):
+    """Phase 12: the pooled-level kernel against its plain version at the
+    Wan2.1-14B 720p shapes, one check a level (2 and 4 at the HBM-gather TPU
+    kernel's geometry, 8 at the resident-pyramid one), with a level mask
+    from the real predictor; then the whole per-level lane against dense
+    flash attention at the same shape."""
+    from blade_torch import config as C
+    from blade_torch.attention import asa
+    from blade_torch.attention.masks import mask_to_block_lists
+    from blade_torch.kernels.block_sparse_attn import flash_attention
+    from blade_torch.kernels.multilevel_attn import (
+        multilevel_attention, pooled_level_from_records)
+    from blade_torch.kernels.pack import pack_kv_pyramid
+    from blade_torch.kernels.ref_attention import pooled_level_attention_reference
+    from blade_torch.utils.rng import make_generator
+
+    gen = make_generator(2026, dev)
+    record = _recorder(checks)
+    cfg, dit = C.derive_asa_config(C.WAN_14B_720P, "multilevel"), C.WAN_14B_720P.dit
+    h, d, length = dit.num_heads, dit.head_dim, cfg.seq_len
+    assert (h, d, length) == (40, 128, 75600)  # 591 key blocks: the per-level lane
+    q, k, v = (torch.randn((1, h, length, d), generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    levels = asa.compute_mask(q, k, cfg, generator=make_generator(19, dev))
+    n_kt = -(-length // 128)
+    assert levels.shape == (1, h, n_kt, n_kt), levels.shape
+    q3 = q.reshape(h, length, d)
+    records = pack_kv_pyramid(k.reshape(h, length, d), v.reshape(h, length, d))
+    scale = 1.0 / math.sqrt(d)
+    for level, rec in zip((2, 4, 8), records[1:]):
+        seg, pvl = 128 // level, -(-length // level)
+        mask = (levels == level).reshape(h, n_kt, n_kt)
+        idx, cnt = (t.contiguous() for t in mask_to_block_lists(mask))
+        pooled = rec.view(h, n_kt, 2, seg, d)
+        k_pool, v_pool = (pooled[:, :, i].reshape(h, n_kt * seg, d) for i in (0, 1))
+        pairs = _level_pairs(idx, cnt, length, length, level, 128)
+        _attn_check(torch, record, "pooled_level_fwd",
+                    f"level {level} q [1,{h},{length},{d}] pyramid "
+                    f"{rec[0].numel() * 2 / 2**20:.2f} MiB/head key share "
+                    f"{pairs / (h * float(length) ** 2):.4f}",
+                    lambda: pooled_level_from_records(q3, rec, idx, cnt, level=level,
+                                                      scale=scale, pooled_valid_len=pvl),
+                    lambda: pooled_level_attention_reference(
+                        q3, k_pool, v_pool, mask, level=level, scale=scale,
+                        pooled_valid_len=pvl),
+                    10, 1, level == 2, 4.0 * d * pairs, _nbytes(q3, rec, idx, cnt))
+        print(f"pooled level {level}: mean blocks a row {cnt.float().mean().item():.2f}")
+    del records
+    lane_ms = _cuda_ms(torch, lambda: multilevel_attention(q, k, v, levels), 3)
+    dense_ms = _cuda_ms(torch, lambda: flash_attention(q, k, v), 2)
+    print(f"wan14b attention at [1,{h},{length},{d}]: per-level multilevel lane "
+          f"{lane_ms:.2f} ms (level mask in, merged out), dense flash {dense_ms:.2f} ms")
+    return lane_ms, dense_ms
+
+
+def serve_wan14b(torch, dev):
+    """Phase 13: one full-width, full-depth Wan2.1-T2V-14B 720p request on
+    the per-level multilevel lane after a warm-up DiT forward, then one
+    dense-attention forward of the same module (the same parameter
+    storage)."""
+    from blade_torch.cli.inference import build_pipeline, get_args, random_text_embeds
+    from blade_torch.models.layers import dense_attention_fn
+    from blade_torch.utils.rng import make_generator
+
+    args = get_args(["--preset", "wan-14b-720p", "--mask_mode", "multilevel",
+                     "--random-init", "--seed", "8888", "--steps", "8"])
+    t0 = time.perf_counter()
+    pipe = build_pipeline(args)
+    torch.cuda.synchronize()
+    params = list(pipe.dit.parameters())
+    by_dtype = {}
+    for p in params:
+        by_dtype[str(p.dtype)] = by_dtype.get(str(p.dtype), 0) + p.numel() * p.element_size()
+    n_params = sum(p.numel() for p in params)
+    print(f"wan14b pipeline built (random weights, seed 0, lane {pipe.mask_mode}) in "
+          f"{time.perf_counter() - t0:.2f} s; DiT params {n_params / 1e9:.3f} B, bytes "
+          + json.dumps({k: round(b / 1e9, 3) for k, b in by_dtype.items()})
+          + f"; allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    c = pipe.preset.dit
+    assert pipe.mask_mode == "multilevel" and (c.num_layers, c.dim, c.num_heads) == (40, 5120, 40)
+    text = random_text_embeds(pipe, "a corgi surfing a wave at sunset")
+    assert text.shape == (1, 512, 4096)
+    tstep = torch.full((1,), 999.0, device=dev)
+    lat0 = torch.randn(pipe.latent_shape(1), generator=make_generator(5, dev),
+                       device=dev).to(pipe.dtype)
+    with torch.inference_mode():
+        t = time.perf_counter()
+        pipe.dit(lat0, tstep, text, attn_kwargs={"generator": make_generator(6, dev)})
+        torch.cuda.synchronize()
+    print(f"wan14b warm-up forward {1000 * (time.perf_counter() - t):.1f} ms")
+    results, launches, lat = _requests(torch, pipe, text, args.seed, args.steps,
+                                       (1, 81, 720, 1280, 3), n=1)
+    n = c.num_layers * args.steps
+    want = {"dense_fwd": n, "sparse_fwd": n, "pack_kv": n, "pack_kv_pyramid": n,
+            "norm_rope": 2 * n, "pooled_level_fwd": 3 * n}
+    for name, count in launches.items():
+        assert count == want.get(name, 0), (name, count, want.get(name, 0))
+
+    # One forward of the same module (same parameter storage, no second copy
+    # of the 28 GB of weights) with dense flash attention.
+    sparse_fn, pipe.dit.attention_fn = pipe.dit.attention_fn, dense_attention_fn
+    try:
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            v = pipe.dit(lat, tstep, text)
+            torch.cuda.synchronize()
+            dense_ms = 1000 * (time.perf_counter() - t)
+    finally:
+        pipe.dit.attention_fn = sparse_fn
+    assert torch.isfinite(v).all()
+    print(f"wan14b dense-attention forward {dense_ms:.1f} ms; per-level multilevel step "
+          f"{results[0]['step_ms']:.1f} ms")
+    return results, launches, dense_ms, n_params
+
+
+def wan14b_reference_check(torch, dev):
+    """Phase 14, the twin of phases 5 and 11 on the per-level lane: a small
+    Wan (2 layers of width 128, one head of 128) over a 21 x 32 x 52 latent
+    grid, 34 944 tokens in 273 key blocks, so the lane choice itself picks
+    the per-level lane; kernels (bf16, card) against plain versions (f32,
+    CPU) with shared weights and the card's int level masks replayed."""
+    from blade_torch.attention.asa import ASAConfig
+    from blade_torch.attention.integration import asa_model_kwargs
+    from blade_torch.kernels.multilevel_attn import fused_supported
+    from blade_torch.models.wan_dit import WanConfig, WanModel
+    from blade_torch.utils.rng import make_generator
+
+    cfg = WanConfig(dim=128, ffn_dim=256, num_layers=2, num_heads=1, text_dim=64, freq_dim=32)
+    asa_cfg = ASAConfig(latent_width=52, latent_height=32, latent_frames=21, sample_gap=30,
+                        max_retain_ratio=0.2, mask_mode="multilevel")
+    assert not fused_supported(128, asa_cfg.seq_len)
+    card = WanModel(cfg, dtype=torch.bfloat16, device=dev, **asa_model_kwargs(asa_cfg)).eval()
+    card.random_init_(make_generator(41, dev))
+    cpu = WanModel(cfg, dtype=torch.float32, **asa_model_kwargs(asa_cfg)).eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    g = torch.Generator().manual_seed(42)
+    x = torch.randn(1, 16, 21, 64, 104, generator=g)
+    text = torch.randn(1, 8, 64, generator=g)
+    t = torch.tensor([700.0])
+    with torch.inference_mode():
+        v_card, levels = card(x.to(dev), t.to(dev), text.to(dev),
+                              attn_kwargs={"generator": make_generator(43, dev),
+                                           "collect_mask": True})
+        t0 = time.perf_counter()
+        v_cpu = cpu(x, t, text, attn_kwargs={"masks": levels.cpu()})
+        cpu_s = time.perf_counter() - t0
+    err = (v_card.float().cpu() - v_cpu).abs().max().item()
+    scale = v_cpu.abs().max().item()
+    shares = {lv: round((levels == lv).float().mean().item(), 4) for lv in (0, 1, 2, 4, 8)}
+    print(f"wan14b-lane reference check: v max_abs_err {err:.4e} (bf16 kernels on the card vs "
+          f"f32 plain on the CPU in {cpu_s:.1f} s, |ref| max {scale:.3f}, level shares "
+          f"{shares}, tol 5e-2*|ref|max)")
+    assert torch.isfinite(v_card).all() and levels.shape == (2, 1, 1, 273, 273)
+    assert levels.dtype == torch.int32 and all(shares[lv] > 0 for lv in (1, 2, 4, 8))
+    assert err <= 5e-2 * scale, (err, scale)
+    return err
+
+
 def main():
     try:
         import torch
@@ -818,23 +1001,41 @@ def main():
     torch.cuda.empty_cache()
     check_cog_multilevel(torch, dev, checks)
     check_dense_d64(torch, dev, checks)
-    assert set(checks) == set(_build.KERNELS), (set(checks), set(_build.KERNELS))
     cog_results, cog_launches, cog_dense_ms = serve_cog(torch, dev)
     cog_ref_err = cog_reference_check(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lane_ms, dense_attn_ms = check_wan14b_pooled(torch, dev, checks)
+    assert set(checks) == set(_build.KERNELS), (set(checks), set(_build.KERNELS))
+    gc.collect()
+    torch.cuda.empty_cache()
+    w14_results, w14_launches, w14_dense_ms, w14_params = serve_wan14b(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    w14_ref_err = wan14b_reference_check(torch, dev)
 
-    warm, cog = results[1], cog_results[1]
+    warm, cog, w14 = results[1], cog_results[1], w14_results[0]
     print("summary " + json.dumps(dict(
         card=smi, denoise_s=warm["denoise_s"], step_ms=warm["step_ms"],
         decode_s=warm["decode_s"], clip_s=warm["clip_s"], dense_step_ms=dense_ms,
-        cold_clip_s=results[0]["clip_s"], reference_max_abs_err=ref_err,
+        cold_clip_s=results[0]["clip_s"], peak_mem_gib=max(r["peak_mem_gib"] for r in results),
+        denoise_peak_gib=warm["denoise_peak_gib"], decode_peak_gib=warm["decode_peak_gib"],
+        reference_max_abs_err=ref_err,
         gradient_max_abs_err=grad_err, train_s_per_step=trained["s_per_step_warm"],
         train_peak_mem_gib=trained["peak_mem_gib"],
         cog_clip_s=cog["clip_s"], cog_denoise_s=cog["denoise_s"], cog_step_ms=cog["step_ms"],
         cog_decode_s=cog["decode_s"], cog_dense_step_ms=cog_dense_ms,
         cog_peak_mem_gib=max(r["peak_mem_gib"] for r in cog_results),
-        cog_cold_clip_s=cog_results[0]["clip_s"], cog_reference_max_abs_err=cog_ref_err)))
+        cog_cold_clip_s=cog_results[0]["clip_s"], cog_reference_max_abs_err=cog_ref_err,
+        wan14b_clip_s=w14["clip_s"], wan14b_denoise_s=w14["denoise_s"],
+        wan14b_step_ms=w14["step_ms"], wan14b_decode_s=w14["decode_s"],
+        wan14b_dense_step_ms=w14_dense_ms, wan14b_peak_mem_gib=w14["peak_mem_gib"],
+        wan14b_denoise_peak_gib=w14["denoise_peak_gib"],
+        wan14b_decode_peak_gib=w14["decode_peak_gib"], wan14b_params_b=w14_params / 1e9,
+        wan14b_attention_lane_ms=lane_ms, wan14b_attention_dense_ms=dense_attn_ms,
+        wan14b_reference_max_abs_err=w14_ref_err)))
     paths = {"serve_wan": serve_launches, "train_wan": train_launches,
-             "serve_cog": cog_launches}
+             "serve_cog": cog_launches, "serve_wan14b": w14_launches}
     kernels = []
     for name, k in _build.KERNELS.items():
         main_check = next(c for c in checks[name] if c["main"])

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Where the time of a CogVideoX-5B 480p request goes on one NVIDIA GPU.
+"""Where the time of one serving request goes on one NVIDIA GPU.
 
-    python3 scripts/torch_cog_profile.py
+    python3 scripts/torch_profile.py                       # CogVideoX-5B 480p
+    python3 scripts/torch_profile.py --preset wan-14b-720p --mask_mode multilevel
 
-Builds the ``cogvideox-5b-480p`` pipeline of the PyTorch port (random
-weights from seed 0, the multilevel ASA lane), then runs ``torch.profiler``
-over (1) one warm DiT forward at a mid-schedule timestep and (2) one warm
-f32 VAE decode of random latents (tiled, fb=2 chunks).  For each it prints
-the host wall time (ending in ``synchronize``), the device time by kernel
-group and the largest kernels, and the device busy share: the summed
-kernel time over the wall time (one stream, so kernels do not overlap).
+Builds the named pipeline of the PyTorch port (random weights from seed 0,
+the preset's ASA lane unless ``--mask_mode`` names one), then runs
+``torch.profiler`` over (1) one warm DiT forward at a mid-schedule timestep
+and (2) one warm f32 VAE decode of random latents.  For each it prints the
+host wall time (ending in ``synchronize``), the device time by kernel group
+and the largest kernels, the device busy share (the summed kernel time over
+the wall time; one stream, so kernels do not overlap) and the peak device
+memory.
 """
 
 import json
@@ -20,7 +22,12 @@ import time
 
 GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("multilevel kernel", ("multilevel_fwd",)),
+    ("pooled-level kernel", ("pooled_level_fwd",)),
     ("pyramid pack", ("pack_kv_pyramid",)),
+    ("pack_kv", ("pack_kv_kernel",)),
+    ("norm_rope", ("norm_rope_kernel",)),
+    ("sparse kernel (level 1)", ("attn_fwd_kernel<128, 128, true>",
+                                 "attn_fwd_kernel<64, 64, true>")),
     ("dense kernel (predictor)", ("attn_fwd_kernel",)),
     ("convolution", ("conv", "fprop", "implicit", "winograd", "fft", "cudnn")),
     ("GEMM", ("gemm", "nvjet", "xmma", "cutlass", "sm90_", "ampere_", "cublas")),
@@ -44,6 +51,7 @@ def _profile(torch, label, fn, top=12):
 
     fn()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         fn()
@@ -60,17 +68,26 @@ def _profile(torch, label, fn, top=12):
     groups = {}
     for name, ms, _ in rows:
         groups[_group(name)] = groups.get(_group(name), 0.0) + ms
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     print(f"== {label}: wall {wall_ms:.1f} ms, device kernels {busy:.1f} ms, "
-          f"busy share {busy / wall_ms:.3f}")
+          f"busy share {busy / wall_ms:.3f}, peak {peak_gib:.2f} GiB")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"   {g:28s} {ms:10.2f} ms  {ms / busy:6.1%}")
     for name, ms, count in sorted(rows, key=lambda r: -r[1])[:top]:
         print(f"   {ms:10.2f} ms  x{count:<5d} {name[:110]}")
-    return dict(label=label, wall_ms=wall_ms, device_ms=busy, groups=groups)
+    return dict(label=label, wall_ms=wall_ms, device_ms=busy, peak_gib=peak_gib,
+                groups=groups)
 
 
 def main():
+    import argparse
+
     import torch
+
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--preset", default="cogvideox-5b-480p")
+    p.add_argument("--mask_mode", choices=["energy", "multilevel"], default=None)
+    args = p.parse_args()
 
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
@@ -81,16 +98,20 @@ def main():
     from blade_torch.utils.rng import make_generator
 
     dev = torch.device("cuda")
-    pipe = build_pipeline(get_args(["--preset", "cogvideox-5b-480p", "--random-init"]))
+    argv = ["--preset", args.preset, "--random-init"]
+    if args.mask_mode:
+        argv += ["--mask_mode", args.mask_mode]
+    pipe = build_pipeline(get_args(argv))
     text = random_text_embeds(pipe, "a corgi surfing a wave at sunset")
     gen = make_generator(1, dev)
     lat = torch.randn(pipe.latent_shape(1), generator=gen, device=dev).to(pipe.dtype)
     tstep = torch.full((1,), 499.0, device=dev)
     out = []
     with torch.inference_mode():
-        out.append(_profile(torch, "DiT forward (multilevel ASA)", lambda: pipe.dit(
-            lat, tstep, text, attn_kwargs={"generator": make_generator(2, dev)})))
-        out.append(_profile(torch, "VAE decode (f32, tiled, fb=2)",
+        out.append(_profile(torch, f"{args.preset} DiT forward (ASA {pipe.mask_mode} lane)",
+                            lambda: pipe.dit(lat, tstep, text, attn_kwargs={
+                                "generator": make_generator(2, dev)})))
+        out.append(_profile(torch, f"{args.preset} VAE decode (f32)",
                             lambda: pipe.decode_latents(lat.float())))
     print(json.dumps(out))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

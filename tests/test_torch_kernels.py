@@ -175,9 +175,11 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
     pack_kv_pyramid(k[0].detach(), v[0].detach())
     with torch.no_grad():
         multilevel_attention(q, k, v, lists=multilevel_lists(torch.rand(1, 1, 1, 1), cap=128))
+        multilevel_attention(q, k, v, torch.full((1, 1, 1, 1), 2, dtype=torch.int32),
+                             fused=False)  # the per-level lane
     assert set(_build.KERNELS) == {"dense_fwd", "sparse_fwd", "pack_kv", "norm_rope",
                                    "dense_dq", "dense_dkv", "sparse_dq", "sparse_dkv",
-                                   "pack_kv_pyramid", "multilevel_fwd"}
+                                   "pack_kv_pyramid", "multilevel_fwd", "pooled_level_fwd"}
     assert all(kern.launches == 0 for kern in _build.KERNELS.values())
 
 
@@ -187,9 +189,10 @@ def test_kernel_sources_and_build_flags():
     for kern in _build.KERNELS.values():
         src = root / kern.source
         assert src.exists() and f" {kern.symbol}(" in src.read_text()
-        path, line = kern.replaces.split(":")
-        tpu_line = (root / path).read_text().splitlines()[int(line) - 1]
-        assert tpu_line.startswith("def _") and "kernel" in tpu_line, tpu_line
+        for where in kern.replaces.split("; "):  # one CUDA kernel may port two
+            path, line = where.split(":")
+            tpu_line = (root / path).read_text().splitlines()[int(line) - 1]
+            assert tpu_line.startswith("def _") and "kernel" in tpu_line, tpu_line
     with pytest.raises(ValueError):
         block_sparse_attention(*(_t(a) for a in _qkv(13, 1, 1, 64, 64, 64)),
                                torch.ones(1, 1, 2, 1, dtype=torch.bool))

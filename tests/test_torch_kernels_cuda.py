@@ -25,8 +25,8 @@ from blade_torch.kernels.block_sparse_attn import (
     flash_attention,
     flash_attention_wide_v,
 )
-from blade_torch.attention.masks import multilevel_lists
-from blade_torch.kernels.multilevel_attn import multilevel_attention
+from blade_torch.attention.masks import multilevel_lists, multilevel_mask
+from blade_torch.kernels.multilevel_attn import multilevel_attention, pooled_level_attention
 from blade_torch.kernels.norm_rope import _norm_rope_reference, norm_rope_heads
 from blade_torch.kernels.pack import (
     _pack_kv_pyramid_reference,
@@ -40,6 +40,7 @@ from blade_torch.kernels.ref_attention import (
     block_masked_attention,
     dense_attention_with_lse,
     multilevel_lists_attention,
+    pooled_level_attention_reference,
 )
 
 pytestmark = pytest.mark.cuda
@@ -158,6 +159,63 @@ def test_multilevel_kernel_matches_plain(dev, l, d, q_rows, ratios, cap):
     assert _err(lse, ref_lse) <= LSE_TOL
     assert out[0, 1, :q_rows].abs().max().item() == 0.0
     assert lse[0, 1, :q_rows].max().item() == torch.tensor(NEG_INF).item()
+
+
+@pytest.mark.parametrize("level,lq,lk,d", [
+    (2, 300, 1100, 128),   # ragged keys: the last pooled rows past ceil(lk/2) masked
+    (4, 1000, 1100, 64),   # pooled tail row mixing real and edge-repeated keys
+    (8, 260, 900, 128),
+    (8, 640, 4000, 64),
+    (4, 520, 640, 128),    # whole blocks
+])
+def test_pooled_level_kernel_matches_plain(dev, level, lq, lk, d):
+    """One empty row and one row with every block included; the plain
+    version reads the same bf16 pooled records in f32."""
+    gen = torch.Generator(device=dev).manual_seed(level * 1000 + lq + lk + d)
+    q = _rand(gen, 3, lq, d, dev=dev)
+    k, v = _rand(gen, 3, lk, d, dev=dev), _rand(gen, 3, lk, d, dev=dev)
+    rec = pack_kv_pyramid(k, v)[{2: 1, 4: 2, 8: 3}[level]]
+    n_qt, n_kt = -(-lq // 128), -(-lk // 128)
+    mask = torch.rand((3, n_qt, n_kt), generator=gen, device=dev) < 0.4
+    mask[1, 1] = False  # an empty row
+    mask[2, 0] = True  # every block
+    seg, pvl = 128 // level, -(-lk // level)
+    before = _build.KERNELS["pooled_level_fwd"].launches
+    out, lse = pooled_level_attention(q, rec, mask, level=level, scale=d ** -0.5,
+                                      pooled_valid_len=pvl)
+    torch.cuda.synchronize()
+    assert _build.KERNELS["pooled_level_fwd"].launches == before + 1
+    r = rec.view(3, n_kt, 2, seg, d)
+    ref_out, ref_lse = pooled_level_attention_reference(
+        q, r[:, :, 0].reshape(3, -1, d), r[:, :, 1].reshape(3, -1, d), mask, level=level,
+        scale=d ** -0.5, pooled_valid_len=pvl)
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+    assert _err(out, ref_out) <= OUT_TOL
+    assert _err(lse, ref_lse) <= LSE_TOL
+    assert out[1, 128:256].abs().max().item() == 0.0
+    assert lse[1, 128:256].max().item() == torch.tensor(NEG_INF).item()
+
+
+def test_per_level_lane_matches_plain(dev):
+    """``multilevel_attention(..., fused=False)`` on the card: level 1
+    through pack_kv + the sparse kernel, each pooled level through one
+    pooled-level launch over one pyramid pack; against the same lane's plain
+    versions on the same bf16 inputs."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    l, d = 1100, 128
+    q, k, v = (_rand(gen, 1, 2, l, d, dev=dev) for _ in range(3))
+    levels = multilevel_mask(torch.rand((1, 2, 9, 9), generator=gen, device=dev), ML_RATIOS)
+    levels[0, 1, 3] = 0  # an empty row
+    names = ("pack_kv", "sparse_fwd", "pack_kv_pyramid", "pooled_level_fwd", "multilevel_fwd")
+    before = [_build.KERNELS[n].launches for n in names]
+    out, lse = multilevel_attention(q, k, v, levels, fused=False)
+    torch.cuda.synchronize()
+    assert [_build.KERNELS[n].launches - b for n, b in zip(names, before)] == [1, 1, 1, 3, 0]
+    ref_out, ref_lse = multilevel_attention(*(t.cpu() for t in (q, k, v)), levels.cpu(),
+                                            fused=False)
+    assert _err(out.cpu(), ref_out) <= OUT_TOL
+    assert _err(lse.cpu(), ref_lse) <= LSE_TOL
+    assert out[0, 1, 384:512].abs().max().item() == 0.0
 
 
 def test_multilevel_is_forward_only(dev):

@@ -129,10 +129,17 @@ def test_fused_supported_matches_jax_and_unsupported_raises():
             for itemsize in (2, 4):
                 assert tml.fused_supported(d, lk, itemsize) == \
                     jml.fused_supported(d, lk, itemsize), (d, lk, itemsize)
+    # past 256 key blocks the per-level lane runs; it takes no lists and
+    # only 128-row mask rows, as in JAX
     q = torch.zeros(1, 1, 128, 64)
     k = torch.zeros(1, 1, 257 * 128, 64)
-    with pytest.raises(NotImplementedError, match="per-level lane"):
+    with pytest.raises(ValueError, match="require the fused lane"):
         tml.multilevel_attention(q, k, k, lists=(None, None))
+    with pytest.raises(ValueError, match="q_rows != 128"):
+        tml.multilevel_attention(q, k, k, torch.ones(1, 1, 1, 257, dtype=torch.int32),
+                                 q_rows=256)
+    with pytest.raises(ValueError, match="require the fused lane"):
+        tml.multilevel_attention(q, q, q, lists=(None, None), fused=False)
     qg = torch.zeros(1, 1, 256, 64, requires_grad=True)
     lists = TM.multilevel_lists(torch.rand(1, 1, 2, 2), cap=128)
     with pytest.raises(RuntimeError, match="forward-only"):
