@@ -5,9 +5,11 @@ Counterpart of ``blade/attention/asa.py``:
   1. Gilbert-rearrange tokens so spatio-temporal neighbours share 128-blocks
      (hoisted to the model when ``pre_arranged``; text tokens stay behind
      the video).
-  2. Predict per-(batch, head) block scores from a subsampled estimate of
-     each key block's softmax mass (the "sum" predictor: flash attention
-     with a one-hot block-pooling V).
+  2. Predict per-(batch, head) block scores from Q and K subsampled per
+     block: the "sum" predictor (each key block's softmax mass: flash
+     attention with a one-hot block-pooling V) or the reference's "max"
+     predictor (renormalised max of the softmax per query and key block:
+     ``kernels/pooled_predictor.py``).
   3. Energy lane (training, Wan serving): the energy mask; branch A is
      block-sparse flash attention over it, branch B dense flash attention
      against ``sample_gap``-mean-pooled K/V with a ``+log(sample_gap)``
@@ -22,8 +24,7 @@ Counterpart of ``blade/attention/asa.py``:
   4. Restore the token order.
 
 Randomness (the predictor's token subsampling) comes from an explicit
-``torch.Generator``; the offsets can also be injected.  The "max" predictor
-is a later slice of the port.
+``torch.Generator``; the offsets can also be injected.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from blade_torch.kernels.block_sparse_attn import (
     flash_attention_wide_v,
 )
 from blade_torch.kernels.multilevel_attn import fused_supported, multilevel_attention
+from blade_torch.kernels.pooled_predictor import pooled_scores
 from blade_torch.kernels.ref_attention import merge_attention
 
 __all__ = ["ASAConfig", "predict_block_scores", "compute_mask", "compute_lists",
@@ -53,8 +55,9 @@ ENERGY_THRESHOLD = 0.95
 
 @dataclasses.dataclass(frozen=True)
 class ASAConfig:
-    """Geometry + sparsity hyperparameters of one model family (the JAX
-    config's "max"-predictor fields belong to a lane not ported yet)."""
+    """Geometry + sparsity hyperparameters of one model family.  The
+    predictor defaults are the serving presets' ("sum", 16 tokens a block);
+    JAX's dataclass defaults are the reference's ("max", 32)."""
 
     latent_width: int
     latent_height: int
@@ -73,6 +76,9 @@ class ASAConfig:
     pre_arranged: bool = False
     # Query rows per multilevel mask row (128 or 256).
     multilevel_q_rows: int = 128
+    # "sum": each key block's softmax mass (matmul-reducible, rows sum to 1
+    # by construction); "max": the reference's renormalised max pooling.
+    predictor: str = "sum"
 
     @property
     def video_tokens(self) -> int:
@@ -101,8 +107,12 @@ def predict_block_scores(
     Subsamples ``sample_tokens_per_block`` tokens per 128-block of Q and K
     (one offset set per (B, H) for Q, then one for K, drawn from
     ``generator`` in that order, or injected as ``offsets = (q_offs,
-    k_offs)``) and pools each sampled query's softmax mass per key block.
+    k_offs)``) and pools the sampled softmax per (query block, key block):
+    the mean of each key block's mass (``predictor="sum"``) or the
+    renormalised max (``"max"``).
     """
+    if cfg.predictor not in ("sum", "max"):
+        raise ValueError(f"unknown ASA predictor {cfg.predictor!r}: 'sum' or 'max'")
     qp = M.pad_to_block_multiple(q, BLOCK)
     kp = M.pad_to_block_multiple(k, BLOCK)
     tokens = cfg.sample_tokens_per_block
@@ -110,6 +120,8 @@ def predict_block_scores(
     q_s = M.sample_block_tokens(qp, BLOCK, tokens, generator=generator, offsets=q_offs)
     k_s = M.sample_block_tokens(kp, BLOCK, tokens, generator=generator, offsets=k_offs)
     scale = 1.0 / math.sqrt(q.shape[-1])
+    if cfg.predictor == "max":
+        return pooled_scores(q_s.contiguous(), k_s.contiguous(), tokens, scale)
     # Row-softmax mass pooled per key block = flash attention with a one-hot
     # block-pooling V, lane-padded to a 128 multiple so one pass covers all
     # key blocks.
@@ -195,7 +207,14 @@ def adaptive_sparse_attention(
         return _multilevel_lane(q, k, v, cfg, mask, generator, offsets)
     if mask is None:
         mask = compute_mask(q, k, cfg, generator=generator, offsets=offsets)
-    out1, lse1 = block_sparse_attention(q, k, v, mask)
+    # The energy clamp bounds every row's selection at int(n_k * max_retain)
+    # blocks plus the two forced columns, a union of two rows at twice that;
+    # only the forced fully-on last two rows exceed it, which is what the
+    # bounded lane of the union lists (SPARSE_UNION) asks of its bound.
+    n_k = mask.shape[-1]
+    union_bound = 2 * (max(int(n_k * cfg.max_retain_ratio), 1) + 2)
+    out1, lse1 = block_sparse_attention(
+        q, k, v, mask, union_bound=union_bound if union_bound < n_k else None)
 
     # Low-res global branch: sample_gap-mean-pooled K/V with a +log(gap)
     # bias (each pooled key stands in for `gap` keys).

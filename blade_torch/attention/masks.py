@@ -5,8 +5,10 @@ per-(batch, head) token subsampling, the energy mask (smallest top-scoring
 set of key blocks reaching ``energy_threshold`` of each row's mass, clamped
 to ``[min_retain, max_retain] * n_k`` blocks, last two block rows and
 columns forced on), the mask -> ascending block lists conversion that the
-sparse kernel consumes, and the multilevel lane's rank bands: the int level
-mask and the per-level ascending lists that the multi-level kernel walks.
+sparse kernel consumes, the union lists of adjacent mask-row pairs that the
+union-gathered sparse kernel walks, the "max" predictor's pooled score
+estimate, and the multilevel lane's rank bands: the int level mask and the
+per-level ascending lists that the multi-level kernel walks.
 """
 
 from __future__ import annotations
@@ -24,8 +26,14 @@ __all__ = [
     "multilevel_rank_bands",
     "multilevel_lists",
     "mask_to_block_lists",
+    "union_block_lists",
     "mask_density",
+    "pooled_attention_scores",
+    "pooled_scores_plain",
 ]
+
+# f32 score elements per chunk of the pooled estimate (512 MB).
+_CHUNK_ELEMS = 1 << 27
 
 
 def pad_to_block_multiple(x: torch.Tensor, block: int) -> torch.Tensor:
@@ -71,6 +79,64 @@ def sample_block_tokens(
     xb = x.reshape(b, h, nblk, block, d)
     idx = offs[:, :, None, :, None].expand(b, h, nblk, offs.shape[-1], d)
     return torch.gather(xb, 3, idx).reshape(b, h, nblk * offs.shape[-1], d)
+
+
+def pooled_scores_plain(
+    q_s: torch.Tensor,
+    k_s: torch.Tensor,
+    tokens_per_block: int,
+    scale: float,
+    q_chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """Block-pooled softmax estimate ``Po [B, H, n_q, n_k]`` in f32, computed
+    on ``q_s``/``k_s`` as given (the plain version of the "max" predictor
+    kernel).
+
+    ``Po[i, j] = max over rows m of q-block i and keys n of k-block j of
+    softmax_row(q_s k_s^T * scale)[m, n]``, each row then renormalised to
+    sum to 1.  The row max and sum run over every key of ``k_s``; blocks are
+    ``tokens_per_block`` rows (``n_q = Ls // tpb``, ``n_k = Lks // tpb``).
+    Chunked over query rows (whole q-blocks), so the ``Ls x Lks`` scores
+    are never held whole.
+    """
+    b, h, ls, _ = q_s.shape
+    lks = k_s.shape[2]
+    tpb = tokens_per_block
+    n_q, n_k = ls // tpb, lks // tpb
+    if q_chunk is None:
+        q_chunk = _CHUNK_ELEMS // max(1, b * h * lks)
+    q_chunk = max(tpb, q_chunk // tpb * tpb)
+    kt = k_s.float().transpose(-1, -2)
+    rows = []
+    for r0 in range(0, n_q * tpb, q_chunk):
+        qc = q_s[:, :, r0:min(r0 + q_chunk, n_q * tpb)].float()
+        s = (qc @ kt) * scale
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+        nqc = qc.shape[2] // tpb
+        per_row = p[..., :n_k * tpb].reshape(b, h, nqc, tpb, n_k, tpb).amax(dim=-1)
+        rows.append((per_row / l.reshape(b, h, nqc, tpb, 1)).amax(dim=3))
+    po = torch.cat(rows, dim=2)
+    return po / po.sum(dim=-1, keepdim=True)
+
+
+def pooled_attention_scores(
+    q_s: torch.Tensor,
+    k_s: torch.Tensor,
+    *,
+    tokens_per_block: int,
+    scale: Optional[float] = None,
+    q_chunk: int = 1024,
+) -> torch.Tensor:
+    """Block-pooled attention estimate ``Po [B, H, n_q, n_k]`` (rows sum to
+    1) from (sub)sampled Q/K ``[B, H, Ls, D]``, every ``tokens_per_block``
+    rows standing for one 128-token block.  As in JAX, Q and K are rounded
+    to bf16 for the score product (f32 accumulation): the estimator is
+    approximate by construction.  Chunked over ``q_chunk`` query rows."""
+    if scale is None:
+        scale = 1.0 / q_s.shape[-1] ** 0.5
+    return pooled_scores_plain(q_s.to(torch.bfloat16), k_s.to(torch.bfloat16),
+                               tokens_per_block, scale, q_chunk=min(q_chunk, q_s.shape[2]))
 
 
 def _force_last2(mask: torch.Tensor, on_value) -> torch.Tensor:
@@ -279,6 +345,50 @@ def mask_to_block_lists(mask: torch.Tensor):
     last = torch.gather(idx, -1, (counts[..., None] - 1).clamp(min=0))
     idx = torch.where(pos < counts[..., None], idx, last)
     return idx.to(torch.int32), counts.to(torch.int32)
+
+
+def union_block_lists(mask: torch.Tensor, group: int = 2, bound: Optional[int] = None):
+    """Union key-block lists over groups of ``group`` adjacent mask rows
+    (the union-gathered sparse kernel's input); bit for bit JAX's.
+
+    ``mask``: bool ``[..., n_q, n_k]`` with ``n_q % group == 0``.  ``bound``:
+    a static bound on every union row's selection except fully-on rows
+    (energy masks: ``group * (ceil(n_k * max_retain) + 2)``; only the
+    forced last-two query rows exceed it).  When given and below ``n_k``,
+    the ranking is one ``topk`` of that width instead of an ``n_k``-wide
+    sort, and a row whose union exceeds it is rewritten as the identity
+    list; list tails repeat the last listed index.
+
+    Returns ``(indices [..., n_q/group, n_k], counts [..., n_q/group],
+    valbits [..., n_q/group, n_k])``, all int32, where bit ``r`` of
+    ``valbits`` says whether mask row ``group * i + r`` selected that block.
+    """
+    *lead, n_q, n_k = mask.shape
+    if n_q % group:
+        raise ValueError(f"union_block_lists: {n_q} mask rows are not a multiple of "
+                         f"the group {group}")
+    m = mask.reshape(*lead, n_q // group, group, n_k)
+    union = m.any(dim=-2)
+    if bound is not None and bound < n_k:
+        dev = mask.device
+        iota = torch.arange(n_k, dtype=torch.int32, device=dev)
+        counts = union.sum(dim=-1, dtype=torch.int32)
+        # selected blocks first, both segments ascending by block id
+        key = torch.where(union, 2 * n_k - iota, n_k - iota)
+        sel = key.topk(bound, dim=-1).indices.to(torch.int32)
+        pos = torch.arange(bound, dtype=torch.int32, device=dev)
+        cl = counts.clamp(max=bound)[..., None]
+        last = torch.gather(sel, -1, (cl - 1).clamp(min=0).long())
+        sel = torch.where(pos < cl, sel, last)
+        sel = torch.cat([sel, last.expand(*sel.shape[:-1], n_k - bound)], dim=-1)
+        idx = torch.where((counts > bound)[..., None], iota, sel)
+    else:
+        idx, counts = mask_to_block_lists(union)
+    bits = torch.zeros(idx.shape, dtype=torch.int32, device=mask.device)
+    for r in range(group):
+        picked = torch.gather(m[..., r, :], -1, idx.long())
+        bits = bits | (picked.to(torch.int32) << r)
+    return idx, counts, bits
 
 
 def mask_density(mask: torch.Tensor) -> torch.Tensor:

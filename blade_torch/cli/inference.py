@@ -53,19 +53,21 @@ def get_args(argv=None):
     return p.parse_args(argv)
 
 
-def build_pipeline(args):
+def build_pipeline(args, preset=None):
     """The random-weight pipeline for ``args``: weights drawn from a
     generator seeded with 0 (as the JAX CLI's ``PRNGKey(0)``), on
-    ``--device``; f32 for the tiny preset, bf16 otherwise."""
+    ``--device``; f32 for the tiny preset, bf16 otherwise.  ``preset``, a
+    ``FamilyPreset``, replaces the one ``args`` name (e.g. a stock preset
+    with the reference-parity ``asa_predictor="max"``)."""
     from blade_torch import config as C
     from blade_torch.sampling.t2v import T2VPipeline
     from blade_torch.utils.rng import make_generator
 
-    if args.preset:
+    if preset is None and args.preset:
         preset = C.PRESETS[args.preset]
-    elif args.family == "wan":
+    elif preset is None and args.family == "wan":
         preset = C.WAN_TINY_PRESET if args.tiny else C.WAN_480P
-    else:
+    elif preset is None:
         preset = C.COGVIDEOX_TINY_PRESET if args.tiny else C.COGVIDEOX_480P
     if not args.random_init:
         raise SystemExit("checkpoint loading is not ported yet: pass --random-init")

@@ -51,8 +51,10 @@ class FamilyPreset:
     min_retain_ratio: float = 0.05
     max_retain_ratio: float = 0.1
     joint_text_attention: bool = False  # cog: text takes part in self-attention
-    # ASA "sum" predictor with 16 sampled tokens per block (reference parity
-    # would be the "max" predictor with 32, not ported yet).
+    # ASA mask predictor and its sampled tokens per 128-token block: "sum"
+    # with 16 serves (cheaper, near-identical masks); the reference's own is
+    # "max" with 32.
+    asa_predictor: str = "sum"
     asa_sample_tokens: int = 16
     # Query rows per multilevel mask row.
     asa_multilevel_q_rows: int = 128
@@ -85,6 +87,7 @@ def derive_asa_config(preset: FamilyPreset, mask_mode: Optional[str] = None) -> 
         sample_gap=preset.sample_gap,
         min_retain_ratio=preset.min_retain_ratio,
         max_retain_ratio=preset.max_retain_ratio,
+        predictor=preset.asa_predictor,
         sample_tokens_per_block=preset.asa_sample_tokens,
         mask_mode=mask_mode or default_mask_mode(preset),
         mask_ratios=preset.asa_mask_ratios,

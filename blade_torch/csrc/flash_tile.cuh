@@ -1,8 +1,9 @@
-// The forward flash-attention tile shared by flash_attn.cu,
-// multilevel_attn.cu and pooled_level_attn.cu: one CTA of 4 warps owns 64 query rows (16 a warp, FA2
-// register layout) and folds 64-key tiles staged in shared memory into a
-// base-2 online-softmax carry, both products on mma.sync m16n8k16 bf16
-// tensor cores with f32 accumulation.
+// The forward flash-attention tile shared by flash_attn.cu, sparse_union.cu,
+// multilevel_attn.cu, pooled_level_attn.cu and pooled_predictor.cu: one CTA
+// of 4 warps owns 64 query rows (16 a warp, FA2 register layout) and folds
+// 64-key tiles staged in shared memory into a base-2 online-softmax carry,
+// both products on mma.sync m16n8k16 bf16 tensor cores with f32
+// accumulation.
 #pragma once
 
 #include "common.cuh"
@@ -31,12 +32,13 @@ __device__ __forceinline__ unsigned long long prefix_valid(int n) {
 }
 
 // rows [0, nvalid) of a BN x W tile (row stride `ld` elements) into shared
-// memory rows of stride W + 8; rows past nvalid are zero-filled.
-template <int W>
+// memory rows of stride W + 8; rows past nvalid are zero-filled.  NT is the
+// CTA's thread count.
+template <int W, int NT = NTHREADS>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, size_t ld,
                                           int nvalid) {
   constexpr int VPR = W / 8;
-  for (int i = threadIdx.x; i < BN * VPR; i += NTHREADS) {
+  for (int i = threadIdx.x; i < BN * VPR; i += NT) {
     const int r = i / VPR, c = i % VPR;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (r < nvalid) val = *reinterpret_cast<const uint4*>(src + (size_t)r * ld + c * 8);
@@ -67,14 +69,13 @@ __device__ __forceinline__ void init_state(WarpState<D, DVC>& st, const bf16* qb
 // Fold one staged tile into the carry.  `valid` bit j: column j is a live
 // key (others score -inf); `c` = scale * log2(e); `b2` is added to every
 // live base-2 score (log2(L) for a tile of L-times pooled keys).
-template <int D, int DVC>
-__device__ __forceinline__ void attend_tile(WarpState<D, DVC>& st, const bf16* ks,
-                                            const bf16* vs, unsigned long long valid,
-                                            float c, float b2) {
-  constexpr int LDK = D + 8, LDV = DVC + 8;
+// Raw scores of this warp's 16 query rows against the staged BN-key tile
+// `ks` (row stride D + 8): s[j] is the m16n8 fragment of keys 8j..8j+7.
+template <int D>
+__device__ __forceinline__ void score_tile(const uint32_t (&qf)[D / 16][4], const bf16* ks,
+                                           float (&s)[BN / 8][4]) {
+  constexpr int LDK = D + 8;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-
-  float s[BN / 8][4];
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
@@ -82,9 +83,20 @@ __device__ __forceinline__ void attend_tile(WarpState<D, DVC>& st, const bf16* k
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const bf16* kp = ks + (j * 8 + g) * LDK + kk * 16 + 2 * t;
-      mma_16816(s[j], st.qf[kk], ld_u32(kp), ld_u32(kp + 8));
+      mma_16816(s[j], qf[kk], ld_u32(kp), ld_u32(kp + 8));
     }
   }
+}
+
+template <int D, int DVC>
+__device__ __forceinline__ void attend_tile(WarpState<D, DVC>& st, const bf16* ks,
+                                            const bf16* vs, unsigned long long valid,
+                                            float c, float b2) {
+  constexpr int LDV = DVC + 8;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+
+  float s[BN / 8][4];
+  score_tile<D>(st.qf, ks, s);
 
   if (valid != ~0ull) {  // same for the whole CTA; full tiles skip the masking
     // This thread's columns are j * 8 + 2t (+1): one variable shift, then

@@ -99,3 +99,77 @@ BT_API int bt_norm_rope(const void* x, const void* scale, const void* cos, const
       static_cast<bt::bf16*>(out), rows, s, dim, heads, d, eps);
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// heads_pack / heads_unpack: the [B, S, H*d] <-> [B, H, S, d] relayouts.
+//
+// Replaces blade/kernels/norm_rope.py::_pack_kernel and ::_unpack_kernel.
+// What bounds them on the H100: memory bandwidth (a pure copy: every byte
+// read once and written once).  The design copies one token row a CTA in
+// chunks of the widest type (16 down to 1 byte) that divides a head's row of
+// d elements and the tensors' alignment, so a head's row moves as whole
+// 16-byte vectors where it can; the token side of the copy is contiguous and
+// the head side is H contiguous runs of d elements.  Any element size and
+// any shape (the TPU's row-tile fallback is a tiling detail).
+namespace bt {
+
+// One CTA a token (b, s): PACK moves x[b, s, :] to out[b, :, s, :];
+// otherwise x[b, :, s, :] to out[b, s, :].  cpr = chunks a head row.
+template <typename T, bool PACK>
+__global__ void heads_relayout_kernel(const T* __restrict__ x, T* __restrict__ out, int S,
+                                      int H, int cpr) {
+  const int row = blockIdx.x;  // b * S + s
+  const int b = row / S, s = row % S;
+  const size_t tok = (size_t)row * H * cpr;
+  for (int i = threadIdx.x; i < H * cpr; i += blockDim.x) {
+    const int h = i / cpr, c = i % cpr;
+    const size_t head = (((size_t)b * H + h) * S + s) * cpr + c;
+    if (PACK)
+      out[head] = x[tok + i];
+    else
+      out[tok + i] = x[head];
+  }
+}
+
+template <bool PACK>
+static int launch_relayout(const void* x, void* out, int b, int s, int h, int d, int esize,
+                           cudaStream_t stream) {
+  const size_t row_bytes = (size_t)d * esize;
+  const uintptr_t align = (uintptr_t)x | (uintptr_t)out;
+  const int rows = b * s;
+  const int threads = 128;
+#define BT_RELAYOUT(T)                                                                     \
+  if (row_bytes % sizeof(T) == 0 && align % sizeof(T) == 0) {                              \
+    heads_relayout_kernel<T, PACK><<<rows, threads, 0, stream>>>(                          \
+        static_cast<const T*>(x), static_cast<T*>(out), s, h, (int)(row_bytes / sizeof(T))); \
+    return (int)cudaGetLastError();                                                        \
+  }
+  BT_RELAYOUT(uint4)
+  BT_RELAYOUT(uint2)
+  BT_RELAYOUT(uint32_t)
+  BT_RELAYOUT(uint16_t)
+  BT_RELAYOUT(uint8_t)
+#undef BT_RELAYOUT
+  return (int)cudaErrorInvalidValue;
+}
+
+static bool relayout_args_ok(int b, int s, int h, int d, int esize) {
+  return b > 0 && s > 0 && h > 0 && d > 0 && esize > 0 && (long long)b * s <= 2147483647LL &&
+         (long long)h * d * esize <= 2147483647LL;
+}
+
+}  // namespace bt
+
+// x [b, s, h*d] -> out [b, h, s, d], elements of `esize` bytes.
+BT_API int bt_heads_pack(const void* x, void* out, int b, int s, int h, int d, int esize,
+                         void* stream) {
+  if (!bt::relayout_args_ok(b, s, h, d, esize)) return (int)cudaErrorInvalidValue;
+  return bt::launch_relayout<true>(x, out, b, s, h, d, esize, static_cast<cudaStream_t>(stream));
+}
+
+// x [b, h, s, d] -> out [b, s, h*d], elements of `esize` bytes.
+BT_API int bt_heads_unpack(const void* x, void* out, int b, int h, int s, int d, int esize,
+                           void* stream) {
+  if (!bt::relayout_args_ok(b, s, h, d, esize)) return (int)cudaErrorInvalidValue;
+  return bt::launch_relayout<false>(x, out, b, s, h, d, esize, static_cast<cudaStream_t>(stream));
+}

@@ -20,6 +20,16 @@ materialised: the kernels mask keys past ``Lk`` and rows past ``Lq``
 themselves).  The sparse mask is bool ``[B, H, ceil(Lq/128),
 ceil(Lk/128)]``; a row with no selected block gives out 0 and lse -1e30,
 and no gradient.
+
+With the module flag ``SPARSE_UNION`` set (JAX's flag of the same name and
+default), the sparse forward pairs the mask rows (``QGROUP`` = 2; an odd row
+count is padded with one empty row), walks the union of each pair's key
+blocks with per-row validity bits (``masks.union_block_lists``, its bounded
+``topk`` lane when the caller passes ``union_bound``) and launches the
+union-gathered kernel of ``csrc/sparse_union.cu``; CPU tensors take its
+plain version, the block-masked attention over the masks rebuilt from the
+union lists.  The backward is unchanged: as in JAX, it rebuilds the plain
+per-row lists from the mask.
 """
 
 from __future__ import annotations
@@ -29,7 +39,7 @@ from typing import Optional
 
 import torch
 
-from blade_torch.attention.masks import mask_to_block_lists
+from blade_torch.attention.masks import mask_to_block_lists, union_block_lists
 from blade_torch.kernels._build import CudaKernel, check_inputs, cuda_stream
 from blade_torch.kernels.pack import KV_BLOCK, pack_kv
 from blade_torch.kernels.ref_attention import (
@@ -39,7 +49,12 @@ from blade_torch.kernels.ref_attention import (
 )
 
 __all__ = ["flash_attention", "flash_attention_wide_v", "block_sparse_attention",
-           "KV_BLOCK"]
+           "KV_BLOCK", "QGROUP", "SPARSE_UNION"]
+
+QGROUP = 2  # mask rows sharing one union-gathered query tile
+# Union gathering pays only where adjacent mask rows select overlapping
+# blocks (Gilbert locality); off by default, as in JAX.
+SPARSE_UNION = False
 
 _dense_kernel = CudaKernel(
     "dense_fwd", "bt_attn_dense_fwd", "pppppiiiiiffp",
@@ -50,6 +65,11 @@ _sparse_kernel = CudaKernel(
     "sparse_fwd", "bt_attn_sparse_fwd", "ppppppiiiiiiffp",
     source="blade_torch/csrc/flash_attn.cu",
     replaces="blade/kernels/block_sparse_attn.py:360",  # _sparse_fwd_rows_kernel
+)
+_union_kernel = CudaKernel(
+    "sparse_union_fwd", "bt_attn_sparse_union_fwd", "pppppppiiiiiiffp",
+    source="blade_torch/csrc/sparse_union.cu",
+    replaces="blade/kernels/block_sparse_attn.py:522",  # _sparse_fwd_union_kernel
 )
 _BWD_SOURCE = "blade_torch/csrc/flash_attn_bwd.cu"
 _dense_dq_kernel = CudaKernel(
@@ -116,6 +136,58 @@ def _sparse_cuda(q, k, v, mask, scale, bias):
     return out, lse
 
 
+def _union_lists(mask, bound):
+    """``mask [BH, n_qt, n_kt]`` -> the union lists of its row pairs:
+    ``(entries [BH, n_pairs, n_kt], counts [BH, n_pairs])`` int32, each entry
+    ``block | valbits << 16``.  An odd row count gets one empty row."""
+    if mask.shape[-2] % QGROUP:
+        pad = torch.zeros((mask.shape[0], QGROUP - mask.shape[-2] % QGROUP, mask.shape[-1]),
+                          dtype=mask.dtype, device=mask.device)
+        mask = torch.cat([mask, pad], dim=-2)
+    idx, cnt, bits = union_block_lists(mask, group=QGROUP, bound=bound)
+    return (idx | (bits << 16)).contiguous(), cnt.contiguous()
+
+
+def _union_reference(q, k, v, entries, counts, scale, bias):
+    """Plain version of the union kernel on its own inputs: each mask row
+    rebuilt from its pair's union entries and validity bits, then the
+    block-masked attention."""
+    b, h, lq, _ = q.shape
+    n_qt, n_kt = -(-lq // 128), -(-k.shape[2] // KV_BLOCK)
+    blk = (entries & 0xFFFF).long()
+    live = torch.arange(entries.shape[-1], device=entries.device) < counts[..., None]
+    rows = []
+    for r in range(QGROUP):
+        sel = live & (((entries >> (16 + r)) & 1) == 1)
+        hit = torch.zeros((*entries.shape[:-1], n_kt), dtype=torch.int32, device=q.device)
+        rows.append(hit.scatter_add_(-1, blk, sel.to(torch.int32)) > 0)
+    mask = torch.stack(rows, dim=-2).reshape(b, h, -1, n_kt)[:, :, :n_qt]
+    return block_masked_attention(q, k, v, mask, scale=scale, block_k=KV_BLOCK, bias=bias)
+
+
+def _sparse_union_forward(q, k, v, mask, scale, bias, bound):
+    """The ``SPARSE_UNION`` forward: union lists, then the kernel (or its
+    plain version for CPU tensors)."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    n_qt, n_kt = mask.shape[-2:]
+    entries, counts = _union_lists(mask.reshape(b * h, n_qt, n_kt), bound)
+    if not q.is_cuda:
+        return _union_reference(q, k, v, entries.reshape(b, h, *entries.shape[1:]),
+                                counts.reshape(b, h, -1), scale, bias)
+    check_inputs("block_sparse_attention", q, k, v, dtype=torch.bfloat16)
+    if d not in (64, 128):
+        raise ValueError(f"block_sparse_attention: the union kernel takes d in "
+                         f"(64, 128), got {d}")
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    _union_kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), entries.data_ptr(),
+                  counts.data_ptr(), out.data_ptr(), lse.data_ptr(), b * h, lq, lk, d,
+                  counts.shape[-1], entries.shape[-1], float(scale), float(bias),
+                  cuda_stream(q.device))
+    return out, lse
+
+
 def _backward_cuda(q, k, v, out, lse, g_out, g_lse, mask, scale, bias,
                    parts=("dq", "dkv")):
     """The four backward kernels: ``delta = rowsum(dO * O)`` in torch (as
@@ -168,8 +240,10 @@ class _Attention(torch.autograd.Function):
     differentiable in ``q, k, v`` through both outputs."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask, scale, bias):
-        if q.is_cuda:
+    def forward(ctx, q, k, v, mask, scale, bias, union_bound):
+        if mask is not None and SPARSE_UNION:
+            out, lse = _sparse_union_forward(q, k, v, mask, scale, bias, union_bound)
+        elif q.is_cuda:
             out, lse = (_dense_cuda(q, k, v, scale, bias) if mask is None
                         else _sparse_cuda(q, k, v, mask, scale, bias))
         elif mask is None:
@@ -191,7 +265,7 @@ class _Attention(torch.autograd.Function):
             dq, dk, dv = attention_backward_reference(
                 q, k, v, out, lse, g_out, g_lse, block_mask=mask, block_k=KV_BLOCK,
                 scale=ctx.scale, bias=ctx.bias)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(
@@ -207,7 +281,7 @@ def flash_attention(
     _check_qkv(q, k, v, same_dv=True)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    return _Attention.apply(q, k, v, None, float(scale), float(bias))
+    return _Attention.apply(q, k, v, None, float(scale), float(bias), None)
 
 
 def flash_attention_wide_v(
@@ -244,12 +318,15 @@ def block_sparse_attention(
     *,
     scale: Optional[float] = None,
     bias: float = 0.0,
+    union_bound: Optional[int] = None,
 ):
     """Block-sparse flash attention with LSE over 128x128 blocks,
     differentiable in ``q, k, v``.
 
     ``block_mask``: bool ``[B, H, ceil(Lq/128), ceil(Lk/128)]``; ``None``
-    means dense.  Returns ``(out [B,H,Lq,D], lse [B,H,Lq])``.
+    means dense.  ``union_bound`` (read only with ``SPARSE_UNION`` set): a
+    static bound on every union row's selection except fully-on rows (see
+    ``masks.union_block_lists``).  Returns ``(out [B,H,Lq,D], lse [B,H,Lq])``.
     """
     if block_mask is None:
         return flash_attention(q, k, v, scale=scale, bias=bias)
@@ -264,4 +341,4 @@ def block_sparse_attention(
         raise ValueError(f"block_mask is on {block_mask.device}, q on {q.device}")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    return _Attention.apply(q, k, v, block_mask, float(scale), float(bias))
+    return _Attention.apply(q, k, v, block_mask, float(scale), float(bias), union_bound)

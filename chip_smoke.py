@@ -65,10 +65,30 @@ no result):
    of the decode apart, then one dense-attention forward of the same module;
 14. a small-input reference check of the per-level lane: a 2-layer Wan with
    one head of 128 over 273 key blocks, kernels (bf16, card) against plain
-   versions (f32, CPU), shared weights, the card's int level masks replayed.
+   versions (f32, CPU), shared weights, the card's int level masks replayed;
+15. the last three kernels against their plain versions: the "max"
+   predictor's pooled-scores kernel at Wan 480p with 32 and 16 tokens a
+   block and at CogVideoX 480p with 32; the union-gathered sparse forward at
+   Wan 480p on a mask from the real predictor with one forced empty row,
+   beside the 128-row sparse kernel on the same mask; the head relayouts
+   ``heads_pack`` / ``heads_unpack``, bit exact, at the Wan 1.3B and 14B
+   q/k widths (no model calls them, as in the JAX package);
+16. path (a), the reference-parity predictor: the ``wan-1.3b-480p`` preset
+   with ``asa_predictor="max"`` and 32 sampled tokens a block serves two
+   requests through ``build_pipeline`` and ``T2VPipeline.generate``, with
+   exact launch counts a request (240 each of the predictor, dense, sparse
+   and pack kernels, 480 norm_rope; no other kernel) and every mask's
+   density; then a small-input reference check with ``predictor="max"``,
+   kernels (bf16, card) against plain versions (f32, CPU), the card's
+   sampled offsets replayed;
+17. path (b), the union-gathered sparse forward: the stock preset with
+   ``block_sparse_attn.SPARSE_UNION`` set serves one request after a warm-up
+   forward, with exact launch counts (240 union kernel, 480 dense, 480
+   norm_rope, no 128-row sparse kernel and no pack: the union kernel reads
+   K/V in place).
 
 The second-to-last line is the card's ``name, power.limit``; before it, one
-JSON line with the per-kernel results (``launches`` sums the four paths,
+JSON line with the per-kernel results (``launches`` sums the six paths,
 each counted from zero; ``launches_by_path`` splits them); the last line is
 the result object.
 """
@@ -411,10 +431,11 @@ def serve(torch, dev):
     return results, launches, dense_ms
 
 
-def _small_asa_models(torch, dev, seed):
-    """The small ASA model of phases 5 and 7 (2 layers of width 256, 2 heads
-    of 128, 960 tokens in 8 blocks) twice on shared random weights:
-    bf16 activations on the card, f32 on the CPU; both frozen."""
+def _small_asa_models(torch, dev, seed, **asa_fields):
+    """The small ASA model of phases 5, 7 and 16 (2 layers of width 256, 2
+    heads of 128, 960 tokens in 8 blocks) twice on shared random weights:
+    bf16 activations on the card, f32 on the CPU; both frozen.
+    ``asa_fields`` override the ASA config (phase 16: the "max" predictor)."""
     from blade_torch.attention.asa import ASAConfig
     from blade_torch.attention.integration import asa_model_kwargs
     from blade_torch.models.wan_dit import WanConfig, WanModel
@@ -422,7 +443,7 @@ def _small_asa_models(torch, dev, seed):
 
     cfg = WanConfig(dim=256, ffn_dim=512, num_layers=2, num_heads=2, text_dim=64, freq_dim=32)
     asa = ASAConfig(latent_width=16, latent_height=15, latent_frames=4, sample_gap=30,
-                    min_retain_ratio=0.05, max_retain_ratio=0.5)
+                    min_retain_ratio=0.05, max_retain_ratio=0.5, **asa_fields)
     card = WanModel(cfg, dtype=torch.bfloat16, device=dev, **asa_model_kwargs(asa))
     card.random_init_(make_generator(seed, dev))
     cpu = WanModel(cfg, dtype=torch.float32, **asa_model_kwargs(asa))
@@ -962,6 +983,260 @@ def wan14b_reference_check(torch, dev):
     return err
 
 
+def _with_union(bsa, fn):
+    """Run ``fn()`` with ``SPARSE_UNION`` set; the flag is restored even when
+    ``fn`` raises (and the exception propagates)."""
+    old = bsa.SPARSE_UNION
+    bsa.SPARSE_UNION = True
+    try:
+        return fn()
+    finally:
+        bsa.SPARSE_UNION = old
+
+
+def check_last_kernels(torch, dev, checks):
+    """Phase 15: the "max" predictor's pooled-scores kernel (#13) at three
+    shapes, the union-gathered sparse forward (#14) at Wan 480p on a mask
+    from the real energy predictor with one forced empty row (beside the
+    128-row sparse kernel on the same mask), and the head relayouts (#15),
+    bit exact, at the Wan 1.3B and 14B q/k widths."""
+    from blade_torch import config as C
+    from blade_torch.attention import asa
+    from blade_torch.attention.masks import pooled_scores_plain, union_block_lists
+    from blade_torch.kernels import block_sparse_attn as bsa
+    from blade_torch.kernels.norm_rope import (
+        _heads_pack_reference, _heads_unpack_reference, heads_pack, heads_unpack)
+    from blade_torch.kernels.pooled_predictor import pooled_scores
+    from blade_torch.kernels.ref_attention import block_masked_attention
+    from blade_torch.utils.rng import make_generator
+
+    gen = make_generator(2027, dev)
+    record = _recorder(checks)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    # -- pooled predictor (#13).  Tolerance: max |err| <= 1e-3 * max |ref| and
+    # rows summing to 1 within 1e-4: both sides take the same bf16 inputs, so
+    # they differ by f32 sums in another order and ex2.approx only.
+    for name, h, nblk, d, tpb, main in (
+            ("wan 480p, 32 tokens", 12, 256, 128, 32, True),
+            ("cogvideox 480p, 32 tokens", COG_HEADS, -(-COG_TOKENS // 128), COG_HEAD_DIM, 32,
+             False),
+            ("wan 480p, 16 tokens", 12, 256, 128, 16, False)):
+        ls = nblk * tpb
+        qs, ks = randn(1, h, ls, d), randn(1, h, ls, d)
+        scale = 1.0 / math.sqrt(d)
+        got = pooled_scores(qs, ks, tpb)
+        want = pooled_scores_plain(qs, ks, tpb, scale)
+        err, ref = _max_err(got, want), want.abs().max().item()
+        rowsum = (got.sum(-1) - 1.0).abs().max().item()
+        record("pooled_predictor", f"{name} q_s,k_s [1,{h},{ls},{d}] -> Po [1,{h},{nblk},{nblk}]",
+               err <= 1e-3 * ref and rowsum <= 1e-4, err,
+               _cuda_ms(torch, lambda: pooled_scores(qs, ks, tpb), 20),
+               _cuda_ms(torch, lambda: pooled_scores_plain(qs, ks, tpb, scale), 3),
+               f"Po {err:.3e} <= 1e-3*max|ref| ({ref:.4e}), |row sum - 1| {rowsum:.1e} <= 1e-4",
+               main, 2.0 * h * ls * ls * d, _nbytes(qs, ks, got))
+
+    # -- union-gathered sparse forward (#14) ---------------------------------
+    h, d, L = 12, 128, 32760
+    q, k, v = (randn(1, h, L, d) for _ in range(3))
+    cfg = C.derive_asa_config(C.WAN_480P)
+    mask = asa.compute_mask(q, k, cfg, generator=make_generator(7, dev))
+    mask[0, 5, 100] = False  # one forced empty row
+    n_k = mask.shape[-1]
+    bound = 2 * (max(int(n_k * cfg.max_retain_ratio), 1) + 2)
+
+    def union():
+        return _with_union(bsa, lambda: bsa.block_sparse_attention(q, k, v, mask,
+                                                                   union_bound=bound))
+
+    out, lse = union()
+    assert out[0, 5, 100 * 128:101 * 128].abs().max().item() == 0.0
+    assert lse[0, 5, 100 * 128:101 * 128].max().item() <= -1e29
+    density = mask.float().mean().item()
+    _, u_cnt, _ = union_block_lists(mask.reshape(h, n_k, n_k), group=2, bound=bound)
+    rows_sum = mask.sum().item()
+    _attn_check(torch, record, "sparse_union_fwd",
+                f"q,k,v [1,12,32760,128] density {density:.4f} union bound {bound}", union,
+                lambda: block_masked_attention(q, k, v, mask, block_k=128), 10, 1, True,
+                4.0 * d * _block_pairs(mask, L, L), _nbytes(q, k, v, mask))
+    union_ms = checks["sparse_union_fwd"][-1]["ms"]
+    rows_ms = _cuda_ms(torch, lambda: bsa.block_sparse_attention(q, k, v, mask), 10)
+    print(f"union vs 128-row sparse forward on the same mask: sparse_union_fwd {union_ms:.3f} ms, "
+          f"sparse_fwd {rows_ms:.3f} ms; K/V blocks read: union {int(u_cnt.sum().item())} "
+          f"(x2 CTAs a pair) vs rows {int(rows_sum)} (x2 CTAs a row), share "
+          f"{u_cnt.sum().item() / rows_sum:.4f}")
+    del q, k, v, out, lse
+
+    # -- head relayouts (#15), bit exact; the library call is PyTorch's own
+    # strided copy.
+    for shape, h, main in (((1, 32760, 1536), 12, True), ((1, 75600, 5120), 40, False)):
+        b, s, dim = shape
+        x = randn(*shape)
+        packed, want = heads_pack(x, h), _heads_pack_reference(x, h)
+        record("heads_pack", f"x [{b},{s},{dim}] -> [{b},{h},{s},{dim // h}] bf16",
+               torch.equal(packed, want), _max_err(packed, want),
+               _cuda_ms(torch, lambda: heads_pack(x, h), 20),
+               _cuda_ms(torch, lambda: _heads_pack_reference(x, h), 20), "bit exact", main,
+               0.0, _nbytes(x, packed),
+               _cuda_ms(torch, lambda: x.view(b, s, h, dim // h).transpose(1, 2).contiguous(),
+                        20))
+        back, want = heads_unpack(packed), _heads_unpack_reference(packed)
+        record("heads_unpack", f"[{b},{h},{s},{dim // h}] -> x [{b},{s},{dim}] bf16",
+               torch.equal(back, want) and torch.equal(back, x), _max_err(back, want),
+               _cuda_ms(torch, lambda: heads_unpack(packed), 20),
+               _cuda_ms(torch, lambda: _heads_unpack_reference(packed), 20), "bit exact", main,
+               0.0, _nbytes(packed, back),
+               _cuda_ms(torch, lambda: packed.transpose(1, 2).contiguous().view(b, s, dim), 20))
+        del x, packed, back, want
+
+
+def _density_shim(torch, pipe):
+    """Measurement shim: wrap the DiT's ``attention_fn`` so that every
+    energy mask of the requests that follow is collected and its density
+    summed on the card.  Returns ``(densities, restore)``."""
+    fn = pipe.dit.attention_fn
+    densities = []
+
+    def collecting(q, k, v, **kw):
+        out, mask = fn(q, k, v, collect_mask=True, **kw)
+        densities.append(mask.float().mean())
+        return out
+
+    def restore():
+        pipe.dit.attention_fn = fn
+
+    pipe.dit.attention_fn = collecting
+    return densities, restore
+
+
+def serve_maxpred(torch, dev, stock):
+    """Phase 16, path (a): two full-width ``wan-1.3b-480p`` requests with
+    the reference-parity predictor (``asa_predictor="max"``, 32 tokens a
+    block), exact launch counts, every mask's density, then a small-input
+    reference check with the card's offsets replayed."""
+    import dataclasses
+
+    from blade_torch import config as C
+    from blade_torch.cli.inference import build_pipeline, get_args, random_text_embeds
+
+    preset = dataclasses.replace(C.WAN_480P, asa_predictor="max", asa_sample_tokens=32)
+    args = get_args(["--preset", "wan-1.3b-480p", "--random-init", "--seed", "8888",
+                     "--steps", "8"])
+    pipe = build_pipeline(args, preset=preset)
+    cfg = C.derive_asa_config(pipe.preset)
+    assert (cfg.predictor, cfg.sample_tokens_per_block) == ("max", 32)
+    text = random_text_embeds(pipe, "a corgi surfing a wave at sunset")
+    densities, restore = _density_shim(torch, pipe)
+    try:
+        results, launches, _ = _requests(torch, pipe, text, args.seed, args.steps,
+                                         (1, 81, 480, 832, 3))
+    finally:
+        restore()
+    n = pipe.preset.dit.num_layers * args.steps
+    want = {"pooled_predictor": n, "dense_fwd": n, "sparse_fwd": n, "pack_kv": n,
+            "norm_rope": 2 * n}
+    for name, count in launches.items():  # per request
+        assert count == 2 * want.get(name, 0), (name, count, 2 * want.get(name, 0))
+    assert len(densities) == 2 * n
+    density = torch.stack(densities).mean().item()
+    warm = results[1]
+    print("maxpred request vs the stock preset's (phase 4, warm): " + json.dumps({
+        key: [warm[key], stock[key]] for key in ("step_ms", "denoise_s", "decode_s", "clip_s")})
+        + f"; mask density {density:.4f} over {len(densities)} masks")
+    del pipe
+    err = maxpred_reference_check(torch, dev)
+    return results, launches, density, err
+
+
+def maxpred_reference_check(torch, dev):
+    """Phase 16, second half, the twin of phase 5 with ``predictor="max"``
+    and 32 tokens a block: kernels (bf16, card) against plain versions (f32,
+    CPU) on shared weights, with the offsets the card drew replayed on the
+    CPU (a measurement shim over ``masks.sample_offsets``), so the CPU runs
+    its own plain predictor on the same samples.  bf16 q/k can flip a
+    near-tied block at the energy threshold: the masks must agree on 95 % of
+    their entries, the velocities to 5e-2 * |ref| max."""
+    from blade_torch.attention import masks as M
+    from blade_torch.utils.rng import make_generator
+
+    card, cpu = _small_asa_models(torch, dev, 51, predictor="max", sample_tokens_per_block=32)
+    g = torch.Generator().manual_seed(52)
+    x = torch.randn(1, 16, 4, 30, 32, generator=g)
+    text = torch.randn(1, 8, 64, generator=g)
+    t = torch.tensor([700.0])
+    drawn, sample_offsets = [], M.sample_offsets
+
+    def recording(*a, **kw):
+        drawn.append(sample_offsets(*a, **kw))
+        return drawn[-1]
+
+    try:
+        with torch.inference_mode():
+            M.sample_offsets = recording
+            v_card, m_card = card(x.to(dev), t.to(dev), text.to(dev),
+                                  attn_kwargs={"generator": make_generator(53, dev),
+                                               "collect_mask": True})
+            replay = iter(drawn)
+            M.sample_offsets = lambda *a, **kw: next(replay)
+            v_cpu, m_cpu = cpu(x, t, text, attn_kwargs={"generator": make_generator(54),
+                                                        "collect_mask": True})
+    finally:
+        M.sample_offsets = sample_offsets
+    assert len(drawn) == 4  # q and k offsets of each of the 2 layers
+    err = (v_card.float().cpu() - v_cpu).abs().max().item()
+    scale = v_cpu.abs().max().item()
+    agree = (m_card.cpu() == m_cpu).float().mean().item()
+    print(f"maxpred reference check: velocity max_abs_err {err:.4e} (bf16 kernels on the card "
+          f"vs f32 plain on the CPU, offsets replayed, |ref| max {scale:.3f}, mask density "
+          f"{m_card.float().mean().item():.3f}, masks agree on {agree:.4f} of entries; tol "
+          f"5e-2*|ref|max, agreement >= 0.95)")
+    assert torch.isfinite(v_card).all() and agree >= 0.95, agree
+    assert err <= 5e-2 * scale, (err, scale)
+    return err
+
+
+def serve_union(torch, dev, stock):
+    """Phase 17, path (b): the stock ``wan-1.3b-480p`` preset with
+    ``SPARSE_UNION`` set, one request after a warm-up forward, exact launch
+    counts and every mask's density (the stock predictor's)."""
+    from blade_torch.cli.inference import build_pipeline, get_args, random_text_embeds
+    from blade_torch.kernels import block_sparse_attn as bsa
+    from blade_torch.utils.rng import make_generator
+
+    args = get_args(["--preset", "wan-1.3b-480p", "--random-init", "--seed", "8888",
+                     "--steps", "8"])
+    pipe = build_pipeline(args)
+    text = random_text_embeds(pipe, "a corgi surfing a wave at sunset")
+    tstep = torch.full((1,), 999.0, device=dev)
+    lat0 = torch.randn(pipe.latent_shape(1), generator=make_generator(5, dev),
+                       device=dev).to(pipe.dtype)
+
+    def run():
+        with torch.inference_mode():
+            pipe.dit(lat0, tstep, text, attn_kwargs={"generator": make_generator(6, dev)})
+            torch.cuda.synchronize()
+        densities, restore = _density_shim(torch, pipe)
+        try:
+            return _requests(torch, pipe, text, args.seed, args.steps, (1, 81, 480, 832, 3),
+                             n=1) + (densities,)
+        finally:
+            restore()
+
+    results, launches, _, densities = _with_union(bsa, run)
+    assert bsa.SPARSE_UNION is False
+    n = pipe.preset.dit.num_layers * args.steps
+    want = {"sparse_union_fwd": n, "dense_fwd": 2 * n, "norm_rope": 2 * n}
+    for name, count in launches.items():  # no sparse_fwd, no pack_kv: K/V in place
+        assert count == want.get(name, 0), (name, count, want.get(name, 0))
+    density = torch.stack(densities).mean().item()
+    print(f"union request step {results[0]['step_ms']:.1f} ms vs the stock preset's "
+          f"{stock['step_ms']:.1f} ms (phase 4, warm); clip {results[0]['clip_s']:.3f} s vs "
+          f"{stock['clip_s']:.3f} s; stock-predictor mask density {density:.4f}")
+    return results, launches, density
+
+
 def main():
     try:
         import torch
@@ -1006,13 +1281,22 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     lane_ms, dense_attn_ms = check_wan14b_pooled(torch, dev, checks)
-    assert set(checks) == set(_build.KERNELS), (set(checks), set(_build.KERNELS))
     gc.collect()
     torch.cuda.empty_cache()
     w14_results, w14_launches, w14_dense_ms, w14_params = serve_wan14b(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
     w14_ref_err = wan14b_reference_check(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_last_kernels(torch, dev, checks)
+    assert set(checks) == set(_build.KERNELS), (set(checks), set(_build.KERNELS))
+    gc.collect()
+    torch.cuda.empty_cache()
+    max_results, max_launches, max_density, max_ref_err = serve_maxpred(torch, dev, results[1])
+    gc.collect()
+    torch.cuda.empty_cache()
+    union_results, union_launches, stock_density = serve_union(torch, dev, results[1])
 
     warm, cog, w14 = results[1], cog_results[1], w14_results[0]
     print("summary " + json.dumps(dict(
@@ -1033,9 +1317,16 @@ def main():
         wan14b_denoise_peak_gib=w14["denoise_peak_gib"],
         wan14b_decode_peak_gib=w14["decode_peak_gib"], wan14b_params_b=w14_params / 1e9,
         wan14b_attention_lane_ms=lane_ms, wan14b_attention_dense_ms=dense_attn_ms,
-        wan14b_reference_max_abs_err=w14_ref_err)))
+        wan14b_reference_max_abs_err=w14_ref_err,
+        maxpred_step_ms=max_results[1]["step_ms"], maxpred_clip_s=max_results[1]["clip_s"],
+        maxpred_denoise_s=max_results[1]["denoise_s"],
+        maxpred_decode_s=max_results[1]["decode_s"],
+        maxpred_cold_clip_s=max_results[0]["clip_s"], maxpred_density=max_density,
+        maxpred_reference_max_abs_err=max_ref_err, union_step_ms=union_results[0]["step_ms"],
+        union_clip_s=union_results[0]["clip_s"], stock_density=stock_density)))
     paths = {"serve_wan": serve_launches, "train_wan": train_launches,
-             "serve_cog": cog_launches, "serve_wan14b": w14_launches}
+             "serve_cog": cog_launches, "serve_wan14b": w14_launches,
+             "serve_wan_maxpred": max_launches, "serve_wan_union": union_launches}
     kernels = []
     for name, k in _build.KERNELS.items():
         main_check = next(c for c in checks[name] if c["main"])

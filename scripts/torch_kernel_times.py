@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Forward-kernel times of the PyTorch port on one NVIDIA GPU: ``chip_smoke.py``'s
-forward-kernel checks alone (phases 3 and 9: each kernel against its plain
-version at the main-path shapes of Wan2.1-1.3B 480p and CogVideoX-5B 480p).
+forward-kernel checks alone (phases 3, 9 and 15: each kernel against its
+plain version at the main-path shapes of Wan2.1-1.3B 480p and CogVideoX-5B
+480p, and the "max" predictor, union-gathered sparse and head-relayout
+kernels).
 
     python3 scripts/torch_kernel_times.py
 
@@ -34,7 +36,8 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev, checks = torch.device("cuda"), {}
-    for phase in (smoke.check_kernels, smoke.check_dense_d64, smoke.check_cog_multilevel):
+    for phase in (smoke.check_kernels, smoke.check_dense_d64, smoke.check_cog_multilevel,
+                  smoke.check_last_kernels):
         try:
             phase(torch, dev, checks)
         except ImportError as e:

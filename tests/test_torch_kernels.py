@@ -21,6 +21,7 @@ from blade.kernels.norm_rope import norm_rope_heads as j_norm_rope_heads
 from blade.kernels.pack import pack_kv as j_pack_kv
 from blade.models.layers import deinterleave_perm, rope_3d_tables
 from blade_torch.kernels import _build, ref_attention as tref
+from blade_torch.kernels import block_sparse_attn as tbsa
 from blade_torch.kernels.block_sparse_attn import (
     block_sparse_attention,
     flash_attention,
@@ -28,8 +29,14 @@ from blade_torch.kernels.block_sparse_attn import (
 )
 from blade_torch.attention.masks import multilevel_lists
 from blade_torch.kernels.multilevel_attn import multilevel_attention
-from blade_torch.kernels.norm_rope import _norm_rope_reference, norm_rope_heads
+from blade_torch.kernels.norm_rope import (
+    _norm_rope_reference,
+    heads_pack,
+    heads_unpack,
+    norm_rope_heads,
+)
 from blade_torch.kernels.pack import pack_kv, pack_kv_pyramid
+from blade_torch.kernels.pooled_predictor import pooled_scores
 
 ATOL = 2e-5
 
@@ -177,9 +184,19 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
         multilevel_attention(q, k, v, lists=multilevel_lists(torch.rand(1, 1, 1, 1), cap=128))
         multilevel_attention(q, k, v, torch.full((1, 1, 1, 1), 2, dtype=torch.int32),
                              fused=False)  # the per-level lane
+        pooled_scores(q[..., :32, :].detach(), k[..., :32, :].detach(), 16)
+        heads_unpack(heads_pack(q[0].detach(), 1))
+    old, tbsa.SPARSE_UNION = tbsa.SPARSE_UNION, True
+    try:
+        outs = block_sparse_attention(q, k, v, torch.ones(1, 1, 1, 1, dtype=torch.bool))
+        sum(o.sum() for o in outs).backward()
+    finally:
+        tbsa.SPARSE_UNION = old
     assert set(_build.KERNELS) == {"dense_fwd", "sparse_fwd", "pack_kv", "norm_rope",
                                    "dense_dq", "dense_dkv", "sparse_dq", "sparse_dkv",
-                                   "pack_kv_pyramid", "multilevel_fwd", "pooled_level_fwd"}
+                                   "pack_kv_pyramid", "multilevel_fwd", "pooled_level_fwd",
+                                   "pooled_predictor", "sparse_union_fwd", "heads_pack",
+                                   "heads_unpack"}
     assert all(kern.launches == 0 for kern in _build.KERNELS.values())
 
 

@@ -309,6 +309,117 @@ def test_norm_rope_backward_is_vjp_of_plain(dev):
     torch.testing.assert_close(ds, rs, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("tpb,d,nq,nk", [
+    (32, 128, 10, 7),    # ragged: 224 sampled keys end mid-tile
+    (16, 128, 9, 16),    # 144 sampled queries: the last CTA half-empty
+    (32, 64, 8, 256),    # Wan 480p's 256 key blocks
+    (16, 64, 4, 2000),   # Po rows past 48 KB of shared memory
+])
+def test_pooled_predictor_kernel_matches_plain(dev, tpb, d, nq, nk):
+    """``Po`` against the plain version on the same bf16 inputs: 1e-5
+    absolute (entries <= 1; f32 sums in another order, ex2.approx), rows
+    summing to 1."""
+    from blade_torch.attention.masks import pooled_scores_plain
+    from blade_torch.kernels.pooled_predictor import pooled_scores
+
+    gen = torch.Generator(device=dev).manual_seed(tpb * nk + d)
+    q, k = _rand(gen, 1, 3, nq * tpb, d, dev=dev), _rand(gen, 1, 3, nk * tpb, d, dev=dev)
+    k[:, :, :tpb] += q[:, :, :tpb]  # one strong block
+    before = _build.KERNELS["pooled_predictor"].launches
+    got = pooled_scores(q, k, tpb)
+    torch.cuda.synchronize()
+    assert _build.KERNELS["pooled_predictor"].launches == before + 1
+    want = pooled_scores_plain(q, k, tpb, 1.0 / math.sqrt(d))
+    assert got.shape == want.shape == (1, 3, nq, nk) and got.dtype == torch.float32
+    assert _err(got, want) <= 1e-5
+    assert (got.sum(-1) - 1.0).abs().max().item() <= 1e-5
+
+
+def _union(q, k, v, mask, **kw):
+    from blade_torch.kernels import block_sparse_attn as bsa
+
+    old = bsa.SPARSE_UNION
+    try:
+        bsa.SPARSE_UNION = True
+        return block_sparse_attention(q, k, v, mask, **kw)
+    finally:
+        bsa.SPARSE_UNION = old
+
+
+@pytest.mark.parametrize("lq,lk,d", [(300, 330, 128), (512, 700, 128), (384, 200, 64)])
+def test_sparse_union_kernel_matches_plain(dev, lq, lk, d):
+    """Odd and even mask-row counts, ragged keys, an empty row beside a
+    non-empty one, and a row listing every block."""
+    gen = torch.Generator(device=dev).manual_seed(lq + lk + d)
+    q, k, v = (_rand(gen, 2, 2, n, d, dev=dev) for n in (lq, lk, lk))
+    n_qt, n_kt = -(-lq // 128), -(-lk // 128)
+    mask = torch.rand((2, 2, n_qt, n_kt), generator=gen, device=dev) > 0.5
+    mask[..., 0] = True
+    mask[0, 1, 1] = False  # an empty row
+    mask[1, 0, 0] = True  # a row listing every block
+    counts = {n: _build.KERNELS[n].launches for n in ("sparse_union_fwd", "sparse_fwd", "pack_kv")}
+    out, lse = _union(q, k, v, mask, bias=0.25)
+    torch.cuda.synchronize()
+    assert _build.KERNELS["sparse_union_fwd"].launches == counts["sparse_union_fwd"] + 1
+    assert _build.KERNELS["sparse_fwd"].launches == counts["sparse_fwd"]
+    assert _build.KERNELS["pack_kv"].launches == counts["pack_kv"]
+    ref_out, ref_lse = block_masked_attention(q, k, v, mask, block_k=128, bias=0.25)
+    assert _err(out, ref_out) <= OUT_TOL
+    assert _err(lse, ref_lse) <= LSE_TOL
+    assert out[0, 1, 128:256].abs().max().item() == 0.0
+    assert lse[0, 1, 128:256].max().item() == torch.tensor(NEG_INF).item()
+
+
+def test_sparse_union_kernel_with_bound_on_an_energy_mask(dev):
+    """The energy lane's call: an energy mask of 40 key blocks and its union
+    bound (the forced full rows exceed it and go through as identity lists)."""
+    from blade_torch.attention.masks import energy_mask
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (_rand(gen, 1, 3, 5100, 128, dev=dev) for _ in range(3))
+    scores = torch.rand((1, 3, 40, 40), generator=gen, device=dev) ** 4
+    mask = energy_mask(scores / scores.sum(-1, keepdim=True), min_retain_ratio=0.05,
+                       max_retain_ratio=0.2)
+    bound = 2 * (int(40 * 0.2) + 2)
+    out, lse = _union(q, k, v, mask, union_bound=bound)
+    ref_out, ref_lse = block_masked_attention(q, k, v, mask, block_k=128)
+    assert _err(out, ref_out) <= OUT_TOL
+    assert _err(lse, ref_lse) <= LSE_TOL
+
+
+@pytest.mark.parametrize("b,s,h,d,dtype", [
+    (1, 1000, 12, 128, torch.bfloat16),  # 16-byte chunks
+    (2, 37, 3, 20, torch.float32),       # 16-byte chunks, 5 a head
+    (1, 50, 4, 6, torch.bfloat16),       # 4-byte chunks
+    (1, 33, 5, 3, torch.float16),        # 2-byte chunks
+    (2, 9, 2, 7, torch.uint8),           # 1-byte chunks
+])
+def test_heads_pack_kernels_bit_exact(dev, b, s, h, d, dtype):
+    from blade_torch.kernels.norm_rope import heads_pack, heads_unpack
+
+    x = torch.randint(0, 120, (b, s, h * d), device=dev).to(dtype)
+    before = {n: _build.KERNELS[n].launches for n in ("heads_pack", "heads_unpack")}
+    packed = heads_pack(x, h)
+    back = heads_unpack(packed)
+    torch.cuda.synchronize()
+    assert _build.KERNELS["heads_pack"].launches == before["heads_pack"] + 1
+    assert _build.KERNELS["heads_unpack"].launches == before["heads_unpack"] + 1
+    assert torch.equal(packed, x.view(b, s, h, d).transpose(1, 2))
+    assert torch.equal(back, x)
+
+
+def test_heads_pack_gradients_are_each_others_kernel(dev):
+    from blade_torch.kernels.norm_rope import heads_pack, heads_unpack
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = _rand(gen, 1, 64, 256, dev=dev).requires_grad_(True)
+    w = _rand(gen, 1, 2, 64, 128, dev=dev)
+    before = _build.KERNELS["heads_unpack"].launches
+    (heads_pack(x, 2).float() * w.float()).sum().backward()
+    assert _build.KERNELS["heads_unpack"].launches == before + 1
+    assert torch.equal(x.grad, w.transpose(1, 2).reshape(1, 64, 256))
+
+
 def test_cuda_inputs_never_fall_back(dev):
     q = torch.randn(1, 1, 64, 64, device=dev)  # f32: the kernels take bf16
     with pytest.raises(TypeError):
