@@ -1,15 +1,21 @@
-"""TDM distillation training CLI, Wan path (counterpart of
+"""TDM distillation training CLI, Wan and CogVideoX (counterpart of
 ``blade/cli/train.py``, with the same flag names).
 
 Data-free: the prompt-embedding store and real weights are not ported yet,
 so the CLI trains random weights (``--random-init``) on random text
 embeddings drawn per step from the seed.  For non-tiny presets the frozen
 base is held in bf16 and each DiT block is rematerialised in the backward.
+Both families train with ASA on the energy lane, as the reference trainer
+does; Wan on the flow-matching family with the fake-loss guard, CogVideoX
+(latents ``[B, T, C, H, W]``) on the DDPM v-prediction family with the
+generator loss's weighting factor.
 
 Examples:
   python -m blade_torch.cli.train --family wan --random-init --batch_size 1 \\
       --k_step 2 --cfg 5.0 --lambda_reg 0 --rank 64 --max_train_steps 3 \\
       --checkpointing_steps 2 --output_dir runs/wan_tdm          # one H100
+  python -m blade_torch.cli.train --family cogvideox --random-init \\
+      --batch_size 1 --k_step 2 --max_train_steps 3 --output_dir runs/cog_tdm
   python -m blade_torch.cli.train --family wan --tiny --random-init \\
       --device cpu --max_train_steps 2 --batch_size 2 --output_dir /tmp/tdm
 """
@@ -27,7 +33,7 @@ import torch
 
 
 def get_args(argv=None):
-    p = argparse.ArgumentParser(description="BLADE PyTorch TDM distillation (Wan)")
+    p = argparse.ArgumentParser(description="BLADE PyTorch TDM distillation")
     p.add_argument("--family", choices=["wan", "cogvideox"], default="wan")
     p.add_argument("--weights", type=str)
     p.add_argument("--prompt_embeds", type=str,
@@ -88,14 +94,13 @@ def _refuse_later_slices(args) -> None:
     """Flags whose paths are not ported yet fail loudly instead of being
     ignored."""
     todo = []
-    if args.family != "wan":
-        todo.append("--family cogvideox")
     if args.prompt_embeds:
         todo.append("--prompt_embeds (the native embedding store)")
     if args.report_to != "none":
         todo.append("--report_to tensorboard")
     if args.sample_at_checkpoint:
-        todo.append("--sample_at_checkpoint (needs the VAE encoder path)")
+        todo.append("--sample_at_checkpoint (the K-step student's samples decoded at a "
+                    "checkpoint)")
     if args.dp * args.fsdp * args.tp > 1:
         todo.append("--dp/--fsdp/--tp > 1 (multi-device)")
     if args.optimizer == "prodigy":
@@ -111,7 +116,10 @@ def _refuse_later_slices(args) -> None:
 def build_preset(args):
     from blade_torch import config as C
 
-    preset = C.WAN_TINY_PRESET if args.tiny else C.WAN_480P
+    if args.family == "wan":
+        preset = C.WAN_TINY_PRESET if args.tiny else C.WAN_480P
+    else:
+        preset = C.COGVIDEOX_TINY_PRESET if args.tiny else C.COGVIDEOX_480P
     if args.video:
         f, h, w = args.video
         preset = dataclasses.replace(preset, video=C.VideoSpec(f, h, w, preset.video.fps))
@@ -123,6 +131,7 @@ def build_model(args, preset, device):
     preset, otherwise bf16 (three merged roles of the base in f32 would not
     fit one card; LoRA factors and optimizer states stay f32)."""
     from blade_torch.config import derive_asa_config
+    from blade_torch.models.cogvideox_dit import CogVideoXModel
     from blade_torch.models.wan_dit import WanModel
     from blade_torch.utils.rng import make_generator
 
@@ -130,10 +139,13 @@ def build_model(args, preset, device):
     if args.use_sparsity:
         from blade_torch.attention.integration import asa_model_kwargs
 
-        kwargs = asa_model_kwargs(derive_asa_config(preset))
+        # the energy lane for both families, as the reference trainer
+        # (CogVideoX serves on the multilevel lane)
+        kwargs = asa_model_kwargs(derive_asa_config(preset, "energy"))
     remat = args.remat if args.remat is not None else not args.tiny
-    model = WanModel(preset.dit, dtype=torch.float32 if args.tiny else torch.bfloat16,
-                     remat=remat, device=device, **kwargs)
+    cls = WanModel if preset.name == "wan" else CogVideoXModel
+    model = cls(preset.dit, dtype=torch.float32 if args.tiny else torch.bfloat16,
+                remat=remat, device=device, **kwargs)
     model.random_init_(make_generator(args.seed, device))
     if not args.tiny:
         model.to(torch.bfloat16)
@@ -141,22 +153,44 @@ def build_model(args, preset, device):
 
 
 def latent_shape(preset, batch: int):
+    """Wan ``[B, C, T, H, W]``; CogVideoX ``[B, T, C, H, W]``."""
     t, h, w = preset.latent_grid()
-    pt, ph, pw = preset.dit.patch_size
-    return (batch, preset.dit.in_channels, t * pt, h * ph, w * pw)
+    if preset.name == "wan":
+        pt, ph, pw = preset.dit.patch_size
+        return (batch, preset.dit.in_channels, t * pt, h * ph, w * pw)
+    p = preset.dit.patch_size
+    return (batch, t, preset.dit.in_channels, h * p, w * p)
+
+
+def diffusion_family(preset, device):
+    """Wan: flow matching over the shifted training sigmas; CogVideoX: DDPM
+    v-prediction over the preset's schedule."""
+    from blade_torch.training import tdm
+
+    if preset.name == "wan":
+        from blade_torch.schedulers import unipc_flow as F
+
+        return tdm.flow_family(F.flow_training_sigmas(1000, preset.flow_shift or 3.0),
+                               device=device)
+    from blade_torch.schedulers import ddpm as D
+
+    return tdm.ddpm_family(D.make_ddpm_schedule(
+        snr_shift_scale=preset.snr_shift_scale,
+        rescale_betas_zero_snr=preset.rescale_betas_zero_snr), device=device)
 
 
 def tdm_config(args):
     from blade_torch.training import tdm
 
+    wan = args.family == "wan"
     return tdm.TDMConfig(
         k_step=args.k_step, eta=args.eta, cfg=args.cfg, lambda_reg=args.lambda_reg,
         lr_generator=args.learning_rate_g, lr_fake=args.learning_rate_fake,
         adam_b1=args.adam_beta1, adam_b2=args.adam_beta2,
         max_grad_norm=args.max_grad_norm, lora_rank=args.rank,
         lora_alpha=args.lora_alpha,
-        # Wan: no weighting factor, and the fake-loss skip guard
-        use_weighting_factor=False, fake_loss_skip_threshold=2.0,
+        # Wan: the fake-loss skip guard; CogVideoX: the weighting factor
+        use_weighting_factor=not wan, fake_loss_skip_threshold=2.0 if wan else None,
         optimizer=args.optimizer, grad_accum=args.grad_accum,
         lr_scheduler=args.lr_scheduler, lr_warmup_steps=args.lr_warmup_steps,
         lr_num_cycles=args.lr_num_cycles, lr_power=args.lr_power,
@@ -178,7 +212,6 @@ def main(argv=None, *, on_step=None):
     """Train; returns ``(state, history)``, the final ``TDMState`` and one
     metrics record a step.  ``on_step(record, state)``, if given, runs after
     each step (once the device has finished it)."""
-    from blade_torch.schedulers import unipc_flow as F
     from blade_torch.training import tdm
     from blade_torch.training.checkpointing import CheckpointManager
     from blade_torch.training.lora import export_lora
@@ -192,8 +225,7 @@ def main(argv=None, *, on_step=None):
     preset = build_preset(args)
     model = build_model(args, preset, device)
     dtype = model.dtype
-    family = tdm.flow_family(F.flow_training_sigmas(1000, preset.flow_shift or 3.0),
-                             device=device)
+    family = diffusion_family(preset, device)
     cfg = tdm_config(args)
     lat_shape = latent_shape(preset, args.batch_size)
     root = make_generator(args.seed, device)

@@ -16,10 +16,11 @@ dicts (diffusers key layout), with numpy only.
   :func:`cogvideox_vae_state_dict` follows ``fake_torch_state_dict`` for the
   CogVideoX VAE's decoder (``AutoencoderKLCogVideoX`` ``decoder.*`` keys).
 
-* :func:`wan_lora_factors` maps ``blade/training/lora.py``'s LoRA factor
-  tree over a flax ``WanModel`` onto the port's adapter dict
-  (``training/lora.py``), permuting the ``b`` columns of ``attn1.to_q`` /
-  ``to_k`` into the port's stored (de-interleaved) row order.
+* :func:`wan_lora_factors` and :func:`cogvideox_lora_factors` map
+  ``blade/training/lora.py``'s LoRA factor tree over a flax ``WanModel`` or
+  ``CogVideoXModel`` onto the port's adapter dict (``training/lora.py``),
+  permuting the ``b`` columns of ``attn1.to_q`` / ``to_k`` into the port's
+  stored (de-interleaved) row order.
 
 Trees are nested dicts of arrays, optionally under a top-level ``"params"``.
 """
@@ -31,7 +32,8 @@ from typing import Dict, Mapping
 import numpy as np
 
 __all__ = ["wan_transformer_state_dict", "wan_vae_state_dict", "wan_lora_factors",
-           "cogvideox_transformer_state_dict", "cogvideox_vae_state_dict", "to_torch"]
+           "cogvideox_transformer_state_dict", "cogvideox_vae_state_dict",
+           "cogvideox_lora_factors", "to_torch"]
 
 
 def _tree(params: Mapping) -> Mapping:
@@ -130,6 +132,30 @@ def cogvideox_transformer_state_dict(params: Mapping, num_layers: int
     return sd
 
 
+def _lora_factors(lora: Mapping, num_layers: int, num_heads: int, blocks: str,
+                  attns) -> Dict[str, np.ndarray]:
+    """flax LoRA tree -> ``{"<blocks>.{i}.{attn}.{proj}.a": [in, r], ".b":
+    [r, out]}`` for the attentions ``attns`` of every block."""
+    from blade_torch.models.layers import deinterleave_perm
+
+    p = _tree(lora)
+    out: Dict[str, np.ndarray] = {}
+    for i in range(num_layers):
+        lp = p["blocks"] if "blocks" in p else p[f"blocks_{i}"]
+        for attn in attns:
+            for proj in ("to_q", "to_k", "to_v", "to_out"):
+                node = lp[attn][proj]["kernel"]
+                a, b = (np.asarray(node[f], np.float32) for f in ("a", "b"))
+                if a.ndim == 3:  # stacked over layers
+                    a, b = a[i], b[i]
+                if attn == "attn1" and proj in ("to_q", "to_k"):
+                    b = b[:, deinterleave_perm(num_heads, b.shape[1] // num_heads)]
+                name = f"{blocks}.{i}.{attn}.{proj}" + (".0" if proj == "to_out" else "")
+                out[f"{name}.a"] = np.ascontiguousarray(a)
+                out[f"{name}.b"] = np.ascontiguousarray(b)
+    return out
+
+
 def wan_lora_factors(lora: Mapping, num_layers: int, num_heads: int) -> Dict[str, np.ndarray]:
     """flax LoRA tree (``init_lora`` over ``WanModel`` params) -> the port's
     factors ``{"blocks.{i}.{attn}.{proj}.a": [in, r], ".b": [r, out]}``.
@@ -140,24 +166,19 @@ def wan_lora_factors(lora: Mapping, num_layers: int, num_heads: int) -> Dict[str
     block that pair.  ``attn1.to_q``/``to_k`` get ``b[:, perm]``, perm the
     ``deinterleave_perm`` that ``PermutedLinear`` applies to their rows.
     """
-    from blade_torch.models.layers import deinterleave_perm
+    return _lora_factors(lora, num_layers, num_heads, "blocks", ("attn1", "attn2"))
 
-    p = _tree(lora)
-    out: Dict[str, np.ndarray] = {}
-    for i in range(num_layers):
-        lp = p["blocks"] if "blocks" in p else p[f"blocks_{i}"]
-        for attn in ("attn1", "attn2"):
-            for proj in ("to_q", "to_k", "to_v", "to_out"):
-                node = lp[attn][proj]["kernel"]
-                a, b = (np.asarray(node[f], np.float32) for f in ("a", "b"))
-                if a.ndim == 3:  # stacked over layers
-                    a, b = a[i], b[i]
-                if attn == "attn1" and proj in ("to_q", "to_k"):
-                    b = b[:, deinterleave_perm(num_heads, b.shape[1] // num_heads)]
-                name = f"blocks.{i}.{attn}.{proj}" + (".0" if proj == "to_out" else "")
-                out[f"{name}.a"] = np.ascontiguousarray(a)
-                out[f"{name}.b"] = np.ascontiguousarray(b)
-    return out
+
+def cogvideox_lora_factors(lora: Mapping, num_layers: int, num_heads: int
+                           ) -> Dict[str, np.ndarray]:
+    """flax LoRA tree (``init_lora`` over ``CogVideoXModel`` params) -> the
+    port's factors ``{"transformer_blocks.{i}.attn1.{proj}.a": [in, r],
+    ".b": [r, out]}`` (CogVideoX has one attention a block).  Both tree
+    forms as :func:`wan_lora_factors`; the ``b`` columns of ``to_q`` /
+    ``to_k`` take the q/k de-interleave that
+    :func:`cogvideox_transformer_state_dict` folds into the weights at
+    load."""
+    return _lora_factors(lora, num_layers, num_heads, "transformer_blocks", ("attn1",))
 
 
 def _flatten(tree: Mapping, prefix=()):

@@ -1,5 +1,6 @@
 // The forward flash-attention tile shared by flash_attn.cu, sparse_union.cu,
-// multilevel_attn.cu, pooled_level_attn.cu and pooled_predictor.cu: one CTA
+// multilevel_attn.cu, pooled_level_attn.cu and pooled_predictor.cu (and its
+// pooled-segment gather by pooled_level_bwd.cu): one CTA
 // of 4 warps owns 64 query rows (16 a warp, FA2 register layout) and folds
 // 64-key tiles staged in shared memory into a base-2 online-softmax carry,
 // both products on mma.sync m16n8k16 bf16 tensor cores with f32
@@ -170,44 +171,56 @@ __device__ __forceinline__ void attend_tile(WarpState<D, DVC>& st, const bf16* k
   }
 }
 
-// Fold one pooled level's listed blocks into the carry: SEG = 128 / L pooled
-// rows a block, SPT = BN / SEG listed segments packed into each 64-key tile.
-// `pyr` is one head's level-L records ([n_kt, 2, SEG, D]: K rows, then V
-// rows), `lst` its ascending list of `cnt` block indices; pooled rows at or
+// Stage listed segments j0 .. j0 + 64/SEG - 1 of one pooled level into a
+// 64-key tile: SEG = 128 / L pooled rows a block, `pyr` one head's level-L
+// records ([n_kt, 2, SEG, D]: K rows, then V rows), `lst` its ascending list
+// of `cnt` block indices.  Returns the live-column mask: pooled rows at or
 // past `pooled_len` and slots past the count are dead columns (zero-filled,
-// so no stale value reaches P @ V).  `b2` is added to every live base-2 score.
+// so no stale value reaches a product).  The caller synchronises before
+// (the tile may still be read) and after (before reading it).
+template <int D, int SEG>
+__device__ __forceinline__ unsigned long long gather_pooled_tile(bf16* ks, bf16* vs,
+                                                                 const bf16* pyr,
+                                                                 const int* lst, int j0,
+                                                                 int cnt, int pooled_len) {
+  constexpr int SPT = BN / SEG;
+  constexpr int VPR = D / 8;
+  int blk[SPT];
+  unsigned long long valid = 0ull;
+#pragma unroll
+  for (int u = 0; u < SPT; ++u) {
+    blk[u] = j0 + u < cnt ? lst[j0 + u] : -1;
+    if (blk[u] >= 0) valid |= prefix_valid(min(SEG, pooled_len - blk[u] * SEG)) << (u * SEG);
+  }
+  for (int i = threadIdx.x; i < BN * VPR; i += NTHREADS) {
+    const int r = i / VPR, cc = i % VPR;
+    const int u = r / SEG, row = r % SEG;
+    int b = blk[0];
+#pragma unroll
+    for (int w = 1; w < SPT; ++w)
+      if (u == w) b = blk[w];
+    uint4 kq = make_uint4(0u, 0u, 0u, 0u), vq = kq;
+    if (b >= 0) {
+      const bf16* src = pyr + ((size_t)b * 2 * SEG + row) * D + cc * 8;
+      kq = *reinterpret_cast<const uint4*>(src);
+      vq = *reinterpret_cast<const uint4*>(src + SEG * D);
+    }
+    *reinterpret_cast<uint4*>(ks + r * (D + 8) + cc * 8) = kq;
+    *reinterpret_cast<uint4*>(vs + r * (D + 8) + cc * 8) = vq;
+  }
+  return valid;
+}
+
+// Fold one pooled level's listed blocks into the carry, 64/SEG segments a
+// tile (gather_pooled_tile).  `b2` is added to every live base-2 score.
 template <int D, int SEG>
 __device__ __forceinline__ void walk_pooled(WarpState<D, D>& st, bf16* ks, bf16* vs,
                                             const bf16* pyr, const int* lst, int cnt,
                                             int pooled_len, float c, float b2) {
-  constexpr int SPT = BN / SEG;
-  constexpr int VPR = D / 8;
-  for (int j0 = 0; j0 < cnt; j0 += SPT) {
-    int blk[SPT];
-    unsigned long long valid = 0ull;
-#pragma unroll
-    for (int u = 0; u < SPT; ++u) {
-      blk[u] = j0 + u < cnt ? lst[j0 + u] : -1;
-      if (blk[u] >= 0)
-        valid |= prefix_valid(min(SEG, pooled_len - blk[u] * SEG)) << (u * SEG);
-    }
+  for (int j0 = 0; j0 < cnt; j0 += BN / SEG) {
     __syncthreads();
-    for (int i = threadIdx.x; i < BN * VPR; i += NTHREADS) {
-      const int r = i / VPR, cc = i % VPR;
-      const int u = r / SEG, row = r % SEG;
-      int b = blk[0];
-#pragma unroll
-      for (int w = 1; w < SPT; ++w)
-        if (u == w) b = blk[w];
-      uint4 kq = make_uint4(0u, 0u, 0u, 0u), vq = kq;
-      if (b >= 0) {
-        const bf16* src = pyr + ((size_t)b * 2 * SEG + row) * D + cc * 8;
-        kq = *reinterpret_cast<const uint4*>(src);
-        vq = *reinterpret_cast<const uint4*>(src + SEG * D);
-      }
-      *reinterpret_cast<uint4*>(ks + r * (D + 8) + cc * 8) = kq;
-      *reinterpret_cast<uint4*>(vs + r * (D + 8) + cc * 8) = vq;
-    }
+    const unsigned long long valid =
+        gather_pooled_tile<D, SEG>(ks, vs, pyr, lst, j0, cnt, pooled_len);
     __syncthreads();
     attend_tile<D, D>(st, ks, vs, valid, c, b2);
   }

@@ -49,7 +49,7 @@ from blade_torch.kernels.ref_attention import (
 )
 
 __all__ = ["flash_attention", "flash_attention_wide_v", "block_sparse_attention",
-           "KV_BLOCK", "QGROUP", "SPARSE_UNION"]
+           "attention_backward", "KV_BLOCK", "QGROUP", "SPARSE_UNION"]
 
 QGROUP = 2  # mask rows sharing one union-gathered query tile
 # Union gathering pays only where adjacent mask rows select overlapping
@@ -189,15 +189,17 @@ def _sparse_union_forward(q, k, v, mask, scale, bias, bound):
 
 
 def _backward_cuda(q, k, v, out, lse, g_out, g_lse, mask, scale, bias,
-                   parts=("dq", "dkv")):
+                   parts=("dq", "dkv"), delta=None):
     """The four backward kernels: ``delta = rowsum(dO * O)`` in torch (as
-    JAX computes it in XLA), then dQ and dK/dV, each in its own kernel.
-    ``parts`` picks which of the two kernels run (to time one alone); the
-    gradients of a kernel left out come back ``None``."""
+    JAX computes it in XLA) unless the caller passes it, then dQ and dK/dV,
+    each in its own kernel.  ``parts`` picks which of the two kernels run
+    (to time one alone); the gradients of a kernel left out come back
+    ``None``."""
     g_out = g_out.to(q.dtype).contiguous()
     g_lse = g_lse.float().contiguous()
     check_inputs("attention backward", q, k, v, out, g_out, dtype=torch.bfloat16)
-    delta = (g_out.float() * out.float()).sum(dim=-1)
+    if delta is None:
+        delta = (g_out.float() * out.float()).sum(dim=-1)
     check_inputs("attention backward", lse, delta, g_lse, dtype=torch.float32)
     b, h, lq, d = q.shape
     lk = k.shape[2]
@@ -235,6 +237,17 @@ def _backward_cuda(q, k, v, out, lse, g_out, g_lse, mask, scale, bias,
     return dq, dk, dv
 
 
+def attention_backward(q, k, v, out, lse, g_out, g_lse, mask, *, scale, bias=0.0,
+                       delta=None):
+    """``(dq, dk, dv)`` of dense (``mask=None``) or 128 x 128 block-sparse
+    attention from its saved ``(out, lse)``: the backward kernels on the
+    card, the plain backward for CPU tensors."""
+    if q.is_cuda:
+        return _backward_cuda(q, k, v, out, lse, g_out, g_lse, mask, scale, bias, delta=delta)
+    return attention_backward_reference(q, k, v, out, lse, g_out, g_lse, block_mask=mask,
+                                        block_k=KV_BLOCK, scale=scale, bias=bias, delta=delta)
+
+
 class _Attention(torch.autograd.Function):
     """``(out, lse)`` of dense (``mask=None``) or block-sparse attention,
     differentiable in ``q, k, v`` through both outputs."""
@@ -258,13 +271,8 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_out, g_lse):
         q, k, v, out, lse, mask = ctx.saved_tensors
-        if q.is_cuda:
-            dq, dk, dv = _backward_cuda(q, k, v, out, lse, g_out, g_lse, mask,
-                                        ctx.scale, ctx.bias)
-        else:
-            dq, dk, dv = attention_backward_reference(
-                q, k, v, out, lse, g_out, g_lse, block_mask=mask, block_k=KV_BLOCK,
-                scale=ctx.scale, bias=ctx.bias)
+        dq, dk, dv = attention_backward(q, k, v, out, lse, g_out, g_lse, mask,
+                                        scale=ctx.scale, bias=ctx.bias)
         return dq, dk, dv, None, None, None, None
 
 

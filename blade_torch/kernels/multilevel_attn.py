@@ -18,8 +18,29 @@ and values with a ``+log(L)`` score bias; all levels share one softmax.
   that level's ``pack_kv_pyramid`` records; the four ``(out, lse)`` pairs
   are merged exactly by LSE in f32.
 
-CPU tensors take the plain versions (``ref_attention``).  Forward-only: no
-entry point reaches the multilevel backward.
+Both lanes are differentiable in ``q, k, v``, each through one
+``torch.autograd.Function``, the counterpart of JAX's custom VJPs:
+
+* fused lane (``_fused_ml_core_bwd``): the four level masks are rebuilt
+  from the lists (each mask row repeated onto its 128-row tiles when
+  ``q_rows`` is 256) and four passes run against the GLOBAL merged ``(out,
+  lse)``: level 1 through the block-sparse backward kernels
+  (``block_sparse_attn.attention_backward``), levels 2, 4, 8 through the
+  pooled-level backward kernels (``csrc/pooled_level_bwd.cu``) with a
+  ``+log(L)`` bias; the passes sum;
+* per-level lane (``_pooled_level_core_bwd``): level 1 is
+  ``block_sparse_attention``'s own Function, the three pooled levels one
+  Function over a shared pyramid whose backward runs each level against
+  its own ``(out_l, lse_l)``; ``merge_attention`` backpropagates through
+  torch autograd, as JAX differentiates its merge.
+
+JAX pools outside its custom VJP and lets XLA un-pool; the port's pyramid
+comes from a pack kernel, so the Functions un-pool explicitly: a pooled
+row's dK/dV spreads as ``1/L`` over the ``L`` edge-padded keys it averages,
+and the shares of the padded copies past ``Lk`` go to key ``Lk - 1``.
+
+CPU tensors take the plain versions (``ref_attention``): the plain forward
+and, in the same Functions, the plain per-pass backward.
 """
 
 from __future__ import annotations
@@ -31,16 +52,20 @@ import torch
 
 from blade_torch.attention.masks import mask_to_block_lists
 from blade_torch.kernels._build import CudaKernel, check_inputs, cuda_stream
-from blade_torch.kernels.block_sparse_attn import block_sparse_attention
+from blade_torch.kernels.block_sparse_attn import attention_backward, block_sparse_attention
 from blade_torch.kernels.pack import KV_BLOCK, pack_kv_pyramid
 from blade_torch.kernels.ref_attention import (
+    lists_to_level_masks,
     merge_attention,
     multilevel_lists_attention,
     pooled_level_attention_reference,
+    pooled_level_backward_reference,
 )
 
 __all__ = ["multilevel_attention", "multilevel_from_records", "fused_supported",
-           "levels_to_lists", "pooled_level_attention", "pooled_level_from_records"]
+           "levels_to_lists", "pooled_level_attention", "pooled_level_from_records",
+           "pooled_level_backward", "pooled_level_dq_from_records",
+           "pooled_level_dkv_from_records"]
 
 # The JAX lane selection's VMEM budgets (``multilevel_attn.py:489-495``),
 # kept so the port picks the fused lane for exactly the same geometries.
@@ -58,6 +83,17 @@ _pooled_kernel = CudaKernel(
     # _sparse_fwd_kernel (HBM-gathered segments) and _vmem_level_kernel
     # (resident pyramid): one function, two TPU memory placements
     replaces="blade/kernels/block_sparse_attn.py:233; blade/kernels/multilevel_attn.py:62",
+)
+_POOLED_BWD_SOURCE = "blade_torch/csrc/pooled_level_bwd.cu"
+# _sparse_dq_kernel / _sparse_dkv_kernel at seg_rows 64/32/16, as
+# gather_backward launches them (block_sparse_attn.py:1488 and :1526)
+_pooled_dq_kernel = CudaKernel(
+    "pooled_level_dq", "bt_pooled_level_dq", "pppppppppiiiiiiiifp",
+    source=_POOLED_BWD_SOURCE, replaces="blade/kernels/block_sparse_attn.py:646",
+)
+_pooled_dkv_kernel = CudaKernel(
+    "pooled_level_dkv", "bt_pooled_level_dkv", "ppppppppppiiiiiiifp",
+    source=_POOLED_BWD_SOURCE, replaces="blade/kernels/block_sparse_attn.py:758",
 )
 
 
@@ -100,16 +136,6 @@ def multilevel_from_records(q, records, idx, cnt, lk: int, q_rows: int, scale: f
     return out, lse
 
 
-def _multilevel_cuda(q, k, v, idx, cnt, q_rows, scale):
-    check_inputs("multilevel_attention", q, k, v, dtype=torch.bfloat16)
-    b, h, _, d = q.shape
-    lk = k.shape[2]
-    records = pack_kv_pyramid(k.reshape(b * h, lk, d), v.reshape(b * h, lk, d))
-    idx = idx.to(device=q.device, dtype=torch.int32).contiguous()
-    cnt = cnt.to(device=q.device, dtype=torch.int32).contiguous()
-    return multilevel_from_records(q, records, idx, cnt, lk, q_rows, scale)
-
-
 def _check_pooled(q, records, level):
     """(n_kt, seg): the block count and segment rows of one level's records."""
     if level not in (2, 4, 8):
@@ -146,6 +172,13 @@ def pooled_level_from_records(q, records, idx, cnt, *, level: int, scale: float,
     return out, lse
 
 
+def _split_records(records, n_kt, seg):
+    """Level records ``[BH, 2 * n_kt * seg, d]`` -> ``(k_pool, v_pool)``,
+    each ``[BH, n_kt * seg, d]``."""
+    rec = records.view(records.shape[0], n_kt, 2, seg, records.shape[-1])
+    return tuple(rec[:, :, i].reshape(records.shape[0], n_kt * seg, -1) for i in (0, 1))
+
+
 def pooled_level_attention(q, records, block_mask, *, level: int, scale: float,
                            pooled_valid_len: int):
     """One pooled level of the per-level lane (JAX's
@@ -161,15 +194,210 @@ def pooled_level_attention(q, records, block_mask, *, level: int, scale: float,
         raise ValueError(f"block_mask {tuple(block_mask.shape)} does not match q "
                          f"{tuple(q.shape)} and {n_kt} key blocks")
     if not q.is_cuda:
-        rec = records.view(records.shape[0], n_kt, 2, seg, records.shape[-1])
-        k_pool, v_pool = (rec[:, :, i].reshape(records.shape[0], n_kt * seg, -1)
-                          for i in (0, 1))
+        k_pool, v_pool = _split_records(records, n_kt, seg)
         return pooled_level_attention_reference(q, k_pool, v_pool, block_mask, level=level,
                                                 scale=scale, pooled_valid_len=pooled_valid_len)
     idx, cnt = mask_to_block_lists(block_mask)
     return pooled_level_from_records(q, records, idx.contiguous(), cnt.contiguous(),
                                      level=level, scale=scale,
                                      pooled_valid_len=pooled_valid_len)
+
+
+def _check_pooled_bwd(q, records, out, lse, g_out, g_lse, delta, level):
+    check_inputs("pooled_level_backward", q, records, out, g_out, dtype=torch.bfloat16)
+    check_inputs("pooled_level_backward", lse, g_lse, delta, dtype=torch.float32)
+    if out.shape != q.shape or g_out.shape != q.shape or not (
+            lse.shape == g_lse.shape == delta.shape == q.shape[:2]):
+        raise ValueError("pooled_level_backward: out, g_out must be q's shape and lse, "
+                         "g_lse, delta [BH, Lq]")
+    return _check_pooled(q, records, level)
+
+
+def pooled_level_dq_from_records(q, records, out, lse, g_out, g_lse, delta, idx, cnt, *,
+                                 level: int, scale: float, pooled_valid_len: int):
+    """The dQ kernel alone: ``q, out, g_out [BH, Lq, d]`` bf16, ``lse, g_lse,
+    delta [BH, Lq]`` f32, one level's records and its int32 lists ``idx [BH,
+    ceil(Lq/128), max_k]``, ``cnt [BH, ceil(Lq/128)]`` -> ``dq``."""
+    n_kt, _ = _check_pooled_bwd(q, records, out, lse, g_out, g_lse, delta, level)
+    check_inputs("pooled_level_dq", idx, cnt, dtype=torch.int32)
+    bh, lq, d = q.shape
+    dq = torch.empty_like(q)
+    _pooled_dq_kernel(q.data_ptr(), records.data_ptr(), g_out.data_ptr(), lse.data_ptr(),
+                      delta.data_ptr(), g_lse.data_ptr(), idx.data_ptr(), cnt.data_ptr(),
+                      dq.data_ptr(), bh, lq, n_kt, d, level, idx.shape[1], idx.shape[-1],
+                      pooled_valid_len, float(scale), cuda_stream(q.device))
+    return dq
+
+
+def pooled_level_dkv_from_records(q, records, out, lse, g_out, g_lse, delta, t_idx, t_cnt, *,
+                                  level: int, scale: float, pooled_valid_len: int):
+    """The dK/dV kernel alone: as :func:`pooled_level_dq_from_records` with
+    the transposed lists ``t_idx [BH, n_kt, max_q]``, ``t_cnt [BH, n_kt]``
+    (the 128-row query tiles that selected each block) -> ``(dk, dv)`` of
+    the pooled rows, ``[BH, n_kt * 128/level, d]``."""
+    n_kt, seg = _check_pooled_bwd(q, records, out, lse, g_out, g_lse, delta, level)
+    check_inputs("pooled_level_dkv", t_idx, t_cnt, dtype=torch.int32)
+    bh, lq, d = q.shape
+    dk = torch.empty((bh, n_kt * seg, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    _pooled_dkv_kernel(q.data_ptr(), records.data_ptr(), g_out.data_ptr(), lse.data_ptr(),
+                       delta.data_ptr(), g_lse.data_ptr(), t_idx.data_ptr(), t_cnt.data_ptr(),
+                       dk.data_ptr(), dv.data_ptr(), bh, lq, n_kt, d, level, t_idx.shape[-1],
+                       pooled_valid_len, float(scale), cuda_stream(q.device))
+    return dk, dv
+
+
+def _aligned(t):
+    """``t`` contiguous and 16-byte aligned (copied only when it is not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def pooled_level_backward(q, records, out, lse, g_out, g_lse, block_mask, *, level: int,
+                          scale: float, pooled_valid_len: int, delta=None):
+    """The backward of one pooled level (JAX's ``gather_backward`` at
+    ``seg_rows = 128/level``): ``q, out, g_out [BH, Lq, d]``, ``lse, g_lse
+    [BH, Lq]`` (the level's own lse, or the merged one of all levels),
+    ``records`` the level's ``pack_kv_pyramid`` output and ``block_mask``
+    bool ``[BH, ceil(Lq/128), n_kt]``.  Returns ``(dq, dk_pool, dv_pool)``,
+    the pooled gradients ``[BH, n_kt * 128/level, d]``.  ``delta =
+    rowsum(g_out * out)`` may be passed when several passes share it."""
+    n_kt, seg = _check_pooled(q, records, level)
+    if tuple(block_mask.shape) != (q.shape[0], -(-q.shape[1] // KV_BLOCK), n_kt):
+        raise ValueError(f"block_mask {tuple(block_mask.shape)} does not match q "
+                         f"{tuple(q.shape)} and {n_kt} key blocks")
+    if delta is None:
+        delta = (g_out.float() * out.float()).sum(dim=-1)
+    if not q.is_cuda:
+        k_pool, v_pool = _split_records(records, n_kt, seg)
+        return pooled_level_backward_reference(
+            q, k_pool, v_pool, out, lse, g_out, g_lse, block_mask, level=level, scale=scale,
+            pooled_valid_len=pooled_valid_len, delta=delta)
+    # Autograd hands over cotangents that may be views at any offset (the
+    # merge's per-level lse cotangents); the kernels take 16-byte aligned rows.
+    dtype = q.dtype
+    q, out, g_out = (_aligned(t.to(dtype)) for t in (q, out, g_out))
+    lse, g_lse, delta = (_aligned(t.float()) for t in (lse, g_lse, delta))
+    kw = dict(level=level, scale=scale, pooled_valid_len=pooled_valid_len)
+    lists = (t.contiguous() for t in mask_to_block_lists(block_mask))
+    t_lists = (t.contiguous() for t in mask_to_block_lists(block_mask.transpose(-1, -2)))
+    dq = pooled_level_dq_from_records(q, records, out, lse, g_out, g_lse, delta, *lists, **kw)
+    dk, dv = pooled_level_dkv_from_records(q, records, out, lse, g_out, g_lse, delta,
+                                           *t_lists, **kw)
+    return dq, dk, dv
+
+
+def _unpool(pooled, lk):
+    """Each pooled level's ``(level, [B, H, n_kt * 128/level, d])`` gradient
+    un-pooled onto the ``Lk`` keys, summed in f32: a pooled row spreads
+    ``1/level`` of its gradient over the ``level`` edge-padded keys it
+    averages, and the shares of the padded copies past ``Lk`` (the last key
+    repeated) go to key ``Lk - 1``."""
+    acc = sum(g.float().repeat_interleave(level, dim=-2) / level for level, g in pooled)
+    tail = acc[..., lk:, :].sum(dim=-2)
+    acc = acc[..., :lk, :]
+    acc[..., -1, :] += tail
+    return acc
+
+
+def _flat(t):
+    """``[B, H, L, d]`` (or ``[B, H, L]``) -> contiguous ``[BH, L, ...]``."""
+    return t.reshape(t.shape[0] * t.shape[1], *t.shape[2:]).contiguous()
+
+
+class _FusedMultilevel(torch.autograd.Function):
+    """The fused lane, ``(out, lse)`` differentiable in ``q, k, v``: JAX's
+    ``_fused_ml_core`` custom VJP with the pooling inside (the backward
+    un-pools)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, idx, cnt, q_rows, scale):
+        b, h, lq, d = q.shape
+        lk = k.shape[2]
+        records = pack_kv_pyramid(_flat(k), _flat(v))
+        if q.is_cuda:
+            check_inputs("multilevel_attention", q, k, v, dtype=torch.bfloat16)
+            idx = idx.to(device=q.device, dtype=torch.int32).contiguous()
+            cnt = cnt.to(device=q.device, dtype=torch.int32).contiguous()
+            out, lse = multilevel_from_records(q, records, idx, cnt, lk, q_rows, scale)
+        else:
+            out, lse = multilevel_lists_attention(q, k, v, (idx, cnt), q_rows=q_rows,
+                                                  scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse, idx, cnt, *records[1:])
+        ctx.q_rows, ctx.scale = q_rows, scale
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
+        q, k, v, out, lse, idx, cnt, *records = ctx.saved_tensors
+        b, h, lq, d = q.shape
+        lk = k.shape[2]
+        n_qt, n_kt = -(-lq // KV_BLOCK), -(-lk // KV_BLOCK)
+        masks = lists_to_level_masks(idx, cnt, n_kt)  # [B, H, n_q, 4, n_kt]
+        if ctx.q_rows != KV_BLOCK:  # each mask row onto its 128-row tiles
+            masks = masks.repeat_interleave(ctx.q_rows // KV_BLOCK, dim=2)[:, :, :n_qt]
+        g_out = g_out.to(q.dtype)
+        delta = (g_out.float() * out.float()).sum(dim=-1)
+        dq, dk, dv = attention_backward(q, k, v, out, lse, g_out, g_lse, masks[:, :, :, 0],
+                                        scale=ctx.scale, delta=delta)
+        dq = dq.float()
+        flat = [_flat(t) for t in (q, out, lse, g_out, g_lse, delta)]
+        dks, dvs = [], []
+        for li, (level, rec) in enumerate(zip((2, 4, 8), records), start=1):
+            dq_l, dk_l, dv_l = pooled_level_backward(
+                flat[0], rec, *flat[1:5], _flat(masks[:, :, :, li]), level=level, scale=ctx.scale,
+                pooled_valid_len=-(-lk // level), delta=flat[5])
+            dq += dq_l.float().reshape(q.shape)
+            dks.append((level, dk_l.reshape(b, h, -1, d)))
+            dvs.append((level, dv_l.reshape(b, h, -1, d)))
+        dk = (dk.float() + _unpool(dks, lk)).to(k.dtype)
+        dv = (dv.float() + _unpool(dvs, lk)).to(v.dtype)
+        return dq.to(q.dtype), dk, dv, None, None, None, None
+
+
+class _PooledLevels(torch.autograd.Function):
+    """Levels 2, 4 and 8 of the per-level lane over one shared pyramid:
+    ``(out_2, lse_2, out_4, lse_4, out_8, lse_8)`` differentiable in ``q, k,
+    v``; the backward runs each level against its own ``(out_l, lse_l)``
+    (JAX's ``_pooled_level_core_bwd``) and un-pools."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, levels, scale):
+        b, h, lq, d = q.shape
+        lk = k.shape[2]
+        n_qt, n_kt = -(-lq // KV_BLOCK), -(-lk // KV_BLOCK)
+        q3 = _flat(q)
+        records = pack_kv_pyramid(_flat(k), _flat(v))[1:]
+        outs = []
+        for level, rec in zip((2, 4, 8), records):
+            out_l, lse_l = pooled_level_attention(
+                q3, rec, (levels == level).reshape(b * h, n_qt, n_kt), level=level,
+                scale=scale, pooled_valid_len=-(-lk // level))
+            outs += [out_l.reshape(b, h, lq, d), lse_l.reshape(b, h, lq)]
+        ctx.save_for_backward(q, levels, *records, *outs)
+        ctx.scale, ctx.lk = scale, lk
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        q, levels, *saved = ctx.saved_tensors
+        records, outs = saved[:3], saved[3:]
+        b, h, lq, d = q.shape
+        n_qt, n_kt = levels.shape[-2:]
+        q3 = _flat(q)
+        dq = torch.zeros(q3.shape, dtype=torch.float32, device=q.device)
+        dks, dvs = [], []
+        for i, (level, rec) in enumerate(zip((2, 4, 8), records)):
+            dq_l, dk_l, dv_l = pooled_level_backward(
+                q3, rec, _flat(outs[2 * i]), _flat(outs[2 * i + 1]),
+                _flat(grads[2 * i].to(q.dtype)), _flat(grads[2 * i + 1]),
+                (levels == level).reshape(b * h, n_qt, n_kt), level=level, scale=ctx.scale,
+                pooled_valid_len=-(-ctx.lk // level))
+            dq += dq_l.float()
+            dks.append((level, dk_l.reshape(b, h, -1, d)))
+            dvs.append((level, dv_l.reshape(b, h, -1, d)))
+        return (dq.reshape(q.shape).to(q.dtype), _unpool(dks, ctx.lk).to(q.dtype),
+                _unpool(dvs, ctx.lk).to(q.dtype), None, None)
 
 
 def _multilevel_per_level(q, k, v, levels, scale):
@@ -185,16 +413,8 @@ def _multilevel_per_level(q, k, v, levels, scale):
                          f"got {tuple(levels.shape)}")
     levels = levels.to(q.device)
     out1, lse1 = block_sparse_attention(q, k, v, levels == 1, scale=scale)
-    outs, lses = [out1], [lse1]
-    q3 = q.reshape(b * h, lq, d)
-    records = pack_kv_pyramid(k.reshape(b * h, lk, d), v.reshape(b * h, lk, d))
-    for level, rec in zip((2, 4, 8), records[1:]):
-        out_l, lse_l = pooled_level_attention(
-            q3, rec, (levels == level).reshape(b * h, n_qt, n_kt), level=level, scale=scale,
-            pooled_valid_len=-(-lk // level))
-        outs.append(out_l.reshape(b, h, lq, d))
-        lses.append(lse_l.reshape(b, h, lq))
-    return merge_attention(outs, lses)
+    pooled = _PooledLevels.apply(q, k, v, levels, scale)
+    return merge_attention([out1, *pooled[0::2]], [lse1, *pooled[1::2]])
 
 
 def multilevel_attention(
@@ -228,9 +448,6 @@ def multilevel_attention(
                          f"v {tuple(v.shape)}")
     if q_rows not in (128, 256):
         raise ValueError(f"q_rows must be 128 or 256, got {q_rows}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("multilevel_attention is forward-only: call it under "
-                           "torch.no_grad()")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     if fused is None:
@@ -252,8 +469,6 @@ def multilevel_attention(
     if tuple(idx.shape[:-1]) != (b, h, n_q, 4) or tuple(cnt.shape) != (b, h, n_q, 4):
         raise ValueError(f"lists idx {tuple(idx.shape)} counts {tuple(cnt.shape)} must "
                          f"be [{b}, {h}, {n_q}, 4, cap] and [{b}, {h}, {n_q}, 4]")
-    if not q.is_cuda:
-        if int(cnt.max()) > idx.shape[-1]:
-            raise ValueError("a list count exceeds the list capacity")
-        return multilevel_lists_attention(q, k, v, (idx, cnt), q_rows=q_rows, scale=scale)
-    return _multilevel_cuda(q, k, v, idx, cnt, q_rows, scale)
+    if not q.is_cuda and int(cnt.max()) > idx.shape[-1]:
+        raise ValueError("a list count exceeds the list capacity")
+    return _FusedMultilevel.apply(q, k, v, idx, cnt, q_rows, float(scale))

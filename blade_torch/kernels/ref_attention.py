@@ -28,6 +28,7 @@ __all__ = [
     "mean_pool_kv",
     "pool_pyramid",
     "pooled_level_attention_reference",
+    "pooled_level_backward_reference",
     "multilevel_block_attention_reference",
     "lists_to_level_masks",
     "multilevel_lists_attention",
@@ -134,6 +135,7 @@ def attention_backward_reference(
     block_k: int = 128,
     scale: float,
     bias: float = 0.0,
+    delta: Optional[torch.Tensor] = None,
 ):
     """Gradients ``(dq, dk, dv)`` of ``(out, lse)`` from the forward's saved
     statistics, with the backward kernels' formula
@@ -146,14 +148,16 @@ def attention_backward_reference(
 
     ``block_mask`` (bool ``[B, H, ceil(Lq/128), ceil(Lk/block_k)]``, or
     ``None`` for dense) zeroes ``p`` on skipped blocks; a row whose ``lse``
-    is ``NEG_INF`` (empty) contributes nothing.  f32 math, chunked over
-    query rows like the forwards; the results come back in the inputs'
-    dtypes.
+    is ``NEG_INF`` (empty) contributes nothing.  ``delta``: the row sums
+    ``rowsum(g_out * out)`` when the caller has them (several passes over
+    one ``(out, lse)``).  f32 math, chunked over query rows like the
+    forwards; the results come back in the inputs' dtypes.
     """
     lq, lk = q.shape[-2], k.shape[-2]
     lead = math.prod(q.shape[:-2])
     kf, vf = k.float(), v.float()
-    delta = (g_out.float() * out.float()).sum(dim=-1)
+    if delta is None:
+        delta = (g_out.float() * out.float()).sum(dim=-1)
     rest = g_lse.float() - delta
     dk = torch.zeros(kf.shape, dtype=torch.float32, device=k.device)
     dv = torch.zeros(vf.shape, dtype=torch.float32, device=v.device)
@@ -219,6 +223,41 @@ def pooled_level_attention_reference(
     return block_masked_attention(
         q, k_pool[..., :pooled_valid_len, :], v_pool[..., :pooled_valid_len, :], block_mask,
         block_k=128 // level, scale=scale, bias=float(math.log(level)))
+
+
+def pooled_level_backward_reference(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    g_out: torch.Tensor,
+    g_lse: torch.Tensor,
+    block_mask: torch.Tensor,
+    *,
+    level: int,
+    scale: float,
+    pooled_valid_len: int,
+    delta: Optional[torch.Tensor] = None,
+):
+    """The plain backward of one pooled level: the plain version of the
+    pooled-level backward kernels (``csrc/pooled_level_bwd.cu``).
+
+    Key block ``b`` is the ``128 // level``-row segment ``b`` of ``k_pool,
+    v_pool [..., Lp, D]``; every score carries ``+log(level)``; pooled rows
+    at or past ``pooled_valid_len`` get no probability and no gradient.  p is
+    recomputed from the given ``lse``: the level's own, or the merged lse of
+    all levels, in which case the levels' passes sum to the gradient of the
+    merged attention.  Returns ``(dq, dk_pool, dv_pool)``, ``dk_pool`` and
+    ``dv_pool`` as long as ``k_pool`` (zero past ``pooled_valid_len``).
+    """
+    pvl = pooled_valid_len
+    dq, dk, dv = attention_backward_reference(
+        q, k_pool[..., :pvl, :], v_pool[..., :pvl, :], out, lse, g_out, g_lse,
+        block_mask=block_mask, block_k=128 // level, scale=scale,
+        bias=float(math.log(level)), delta=delta)
+    pad = (0, 0, 0, k_pool.shape[-2] - pvl)
+    return dq, torch.nn.functional.pad(dk, pad), torch.nn.functional.pad(dv, pad)
 
 
 def multilevel_block_attention_reference(

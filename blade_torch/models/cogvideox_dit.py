@@ -19,6 +19,10 @@ The dense model (``token_perm=None``) attends over ``[text, video]``; with
 ``token_perm`` (ASA) the video tokens are gilbert-permuted once after
 patchify and the joint sequence is ``[video, text]`` (``text_last``), so ASA
 sees 128-block-aligned video first; the head output is un-permuted once.
+``remat=True`` recomputes each block in the backward
+(``torch.utils.checkpoint``, the counterpart of flax ``nn.remat``); ASA's
+per-layer draws come from generators folded from a seed and the layer
+index, so the recompute predicts the same masks.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from blade_torch.models.layers import (
     PermutedLayerNorm,
     PermutedLinear,
     apply_rope_half,
+    checkpoint_block,
     deinterleave_perm,
     dense_attention_fn,
     init_lecun_,
@@ -202,10 +207,12 @@ class CogVideoXModel(nn.Module):
 
     def __init__(self, cfg: CogVideoXConfig, *, dtype=torch.bfloat16,
                  attention_fn: Callable = dense_attention_fn,
-                 token_perm: Optional[Tuple[Any, Any]] = None, device=None):
+                 token_perm: Optional[Tuple[Any, Any]] = None, remat: bool = False,
+                 device=None):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
+        self.remat = remat
         self.attention_fn = attention_fn
         self.token_perm = token_perm
         if token_perm is not None:
@@ -272,9 +279,11 @@ class CogVideoXModel(nn.Module):
             x = x.index_select(1, self._perm_idx)
 
         auxes = []
+        remat = self.remat and torch.is_grad_enabled()
         for i, blk in enumerate(self.transformer_blocks):
-            x, enc, aux = blk(x, enc, temb, cos, sin, self.attention_fn,
-                              dict(attn_kwargs, layer_index=i), text_last)
+            args = (x, enc, temb, cos, sin, self.attention_fn,
+                    dict(attn_kwargs, layer_index=i), text_last)
+            x, enc, aux = checkpoint_block(blk, *args) if remat else blk(*args)
             if aux is not None:
                 auxes.append(aux)
 

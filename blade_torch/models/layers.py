@@ -18,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 __all__ = [
     "Linear",
@@ -33,6 +34,7 @@ __all__ = [
     "deinterleave_perm",
     "dense_attention_fn",
     "init_lecun_",
+    "checkpoint_block",
 ]
 
 
@@ -290,3 +292,20 @@ def init_lecun_(module: nn.Module, generator: torch.Generator) -> None:
             m.weight.copy_(w.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator))
             if m.bias is not None:
                 m.bias.zero_()
+
+
+def _call_block(blk, state, *args):
+    return torch.func.functional_call(blk, state, args)
+
+
+def checkpoint_block(blk: nn.Module, *args):
+    """``blk(*args)``, recomputed in the backward (``torch.utils.checkpoint``,
+    the counterpart of flax ``nn.remat``).  The block's tensors go in
+    explicitly: under an outer ``functional_call`` the recompute must see the
+    substituted parameters, which are gone from the module by then.  Every
+    random draw comes from an explicit generator, so the global RNG state
+    needs no stashing."""
+    state = dict(blk.named_parameters())
+    state.update(blk.named_buffers())
+    return checkpoint(_call_block, blk, state, *args, use_reentrant=False,
+                      preserve_rng_state=False)

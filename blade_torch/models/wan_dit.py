@@ -31,7 +31,6 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from blade_torch.attention.integration import stack_masks
 from blade_torch.kernels.norm_rope import norm_rope_heads
@@ -42,6 +41,7 @@ from blade_torch.models.layers import (
     PermutedRMSNorm,
     RMSNorm,
     TimestepEmbedder,
+    checkpoint_block,
     deinterleave_perm,
     dense_attention_fn,
     init_lecun_,
@@ -173,10 +173,6 @@ class WanBlock(nn.Module):
         return x, aux
 
 
-def _call_block(blk, state, *args):
-    return torch.func.functional_call(blk, state, args)
-
-
 class _TextEmbedder(nn.Module):
     def __init__(self, text_dim, dim, dtype, device=None):
         super().__init__()
@@ -287,18 +283,7 @@ class WanModel(nn.Module):
         for i, blk in enumerate(self.blocks):
             args = (x, ctx, temb6, cos, sin, self.attention_fn,
                     dict(attn_kwargs, layer_index=i))
-            if remat:
-                # The block's tensors go in explicitly: under an outer
-                # functional_call the recompute must see the substituted
-                # parameters, which are gone from the module by then.
-                state = dict(blk.named_parameters())
-                state.update(blk.named_buffers())
-                # Every random draw comes from an explicit generator, so the
-                # global RNG state needs no stashing.
-                x, aux = checkpoint(_call_block, blk, state, *args,
-                                    use_reentrant=False, preserve_rng_state=False)
-            else:
-                x, aux = blk(*args)
+            x, aux = checkpoint_block(blk, *args) if remat else blk(*args)
             if aux is not None:
                 auxes.append(aux)
 

@@ -22,6 +22,7 @@ __all__ = [
     "pred_x0_from_v",
     "pred_eps_from_x0",
     "velocity_from_x0_eps",
+    "renoise",
     "trailing_timesteps",
 ]
 
@@ -95,6 +96,16 @@ def pred_eps_from_x0(sched: DDPMSchedule, x0, x_t, t):
 def velocity_from_x0_eps(sched: DDPMSchedule, x0, eps, t):
     """v = alpha_t eps - sigma_t x0."""
     return _gather(sched.alpha, t, x0) * eps - _gather(sched.sigma, t, x0) * x0
+
+
+def renoise(sched: DDPMSchedule, x_t1, noise, t1, t2):
+    """Move a noisy sample from t1 to a higher-noise t2 (> t1) without x0:
+    ``x_t2 = (a2/a1) x_t1 + sqrt(max(s2^2 - (a2/a1 s1)^2, 0)) noise``."""
+    a1, a2 = _gather(sched.alpha, t1, x_t1), _gather(sched.alpha, t2, x_t1)
+    s1, s2 = _gather(sched.sigma, t1, x_t1), _gather(sched.sigma, t2, x_t1)
+    ratio = a2 / a1
+    beta = torch.sqrt(torch.clamp(s2 ** 2 - (ratio * s1) ** 2, min=0.0))
+    return ratio * x_t1 + beta * noise
 
 
 def trailing_timesteps(num_train_timesteps: int, num_inference_steps: int) -> np.ndarray:

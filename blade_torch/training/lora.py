@@ -1,9 +1,9 @@
 """Functional LoRA over the port's named parameters.
 
 Counterpart of ``blade/training/lora.py``: rank-``r`` adapters on the
-``to_q``, ``to_k``, ``to_v`` and ``to_out`` projections of both attentions
-(``attn1`` and ``attn2``) of every block, as the reference trainer's peft
-config.  ``init_lora`` builds a flat dict of factors keyed
+``to_q``, ``to_k``, ``to_v`` and ``to_out`` projections of every attention
+of every block (Wan's ``attn1`` and ``attn2``, CogVideoX's ``attn1``), as
+the reference trainer's peft config.  ``init_lora`` builds a flat dict of factors keyed
 ``"<module>.a"`` (``[in, r] ~ N(0, 1/r)``) and ``"<module>.b"``
 (``[r, out] = 0``); ``merge_lora`` returns effective parameters
 ``W + (alpha / r) (a @ b)^T`` (torch weights are ``[out, in]``, flax kernels
@@ -15,8 +15,8 @@ ROADMAP.md.)  ``attn1.to_q``/``to_k`` store their weight rows permuted by
 ``deinterleave_perm`` (``models/layers.py::PermutedLinear``), and the ``b``
 factor of those two modules keeps its output columns in the same permuted
 order, so the merge is a plain add; :func:`export_lora` and the JAX bridge
-(``convert/from_jax.py::wan_lora_factors``) convert to the checkpoint's own
-order.
+(``convert/from_jax.py::wan_lora_factors``, ``cogvideox_lora_factors``)
+convert to the checkpoint's own order.
 """
 
 from __future__ import annotations

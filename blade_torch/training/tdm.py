@@ -1,6 +1,7 @@
 """TDM: Trajectory Distribution Matching step distillation (data-free).
 
-Counterpart of ``blade/training/tdm.py`` (Wan / flow-matching half):
+Counterpart of ``blade/training/tdm.py``, both diffusion families (Wan's
+flow matching, CogVideoX's DDPM v-prediction):
 
 * three roles share ONE base parameter dict: student = base + LoRA_g,
   fake-score = base + LoRA_f, frozen teacher = base.  The model runs each
@@ -27,6 +28,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from blade_torch.schedulers import ddpm as D
 from blade_torch.schedulers import unipc_flow as F
 from blade_torch.training import lora as lora_lib
 from blade_torch.training.lr_schedules import make_lr_schedule
@@ -35,6 +37,7 @@ from blade_torch.utils.rng import fold_generator
 
 __all__ = [
     "DiffusionFamily",
+    "ddpm_family",
     "flow_family",
     "TDMConfig",
     "TDMState",
@@ -59,6 +62,23 @@ class DiffusionFamily:
     add_noise: Callable  # (x0, eps, t) -> x_t
     renoise: Callable  # (x_t1, xi, t1, t2 > t1) -> x_t2
     sigma_at: Callable  # (t, ndim) -> sigma_t broadcastable
+
+
+def ddpm_family(sched: D.DDPMSchedule, device=None) -> DiffusionFamily:
+    """The DDPM / v-prediction family (CogVideoX) over a schedule's tables."""
+    sigma = torch.as_tensor(sched.sigma, device=device)
+
+    def sigma_at(t, ndim):
+        s = sigma[t.long()]
+        return s.reshape(s.shape + (1,) * (ndim - s.dim()))
+
+    return DiffusionFamily(
+        pred_x0=lambda out, x_t, t: D.pred_x0_from_v(sched, out, x_t, t),
+        pred_eps=lambda x0, x_t, t: D.pred_eps_from_x0(sched, x0, x_t, t),
+        add_noise=lambda x0, eps, t: D.add_noise(sched, x0, eps, t),
+        renoise=lambda x, xi, t1, t2: D.renoise(sched, x, xi, t1, t2),
+        sigma_at=sigma_at,
+    )
 
 
 def flow_family(sigma_table: np.ndarray, device=None) -> DiffusionFamily:

@@ -65,7 +65,9 @@ no result):
    of the decode apart, then one dense-attention forward of the same module;
 14. a small-input reference check of the per-level lane: a 2-layer Wan with
    one head of 128 over 273 key blocks, kernels (bf16, card) against plain
-   versions (f32, CPU), shared weights, the card's int level masks replayed;
+   versions (f32, CPU), shared weights, the card's int level masks replayed:
+   the velocity and the LoRA gradients of one loss (the per-level half of
+   the multilevel gradient check);
 15. the last three kernels against their plain versions: the "max"
    predictor's pooled-scores kernel at Wan 480p with 32 and 16 tokens a
    block and at CogVideoX 480p with 32; the union-gathered sparse forward at
@@ -85,12 +87,38 @@ no result):
    ``block_sparse_attn.SPARSE_UNION`` set serves one request after a warm-up
    forward, with exact launch counts (240 union kernel, 480 dense, 480
    norm_rope, no 128-row sparse kernel and no pack: the union kernel reads
-   K/V in place).
+   K/V in place);
+18. the d = 64 forms of the energy lane's kernels at CogVideoX-5B 480p
+   training shapes (H=48, L=17776 with the 226 text tokens, an energy mask
+   from the real predictor): the sparse forward, ``pack_kv``, the sparse
+   backward and the dense backward on the pooled branch;
+19. the pooled backward kernels (the multilevel backward) against their
+   plain version at CogVideoX-5B 480p fused-lane shapes (p from the merged
+   lse), levels 2, 4 and 8, then the fused lane's dQ, dK, dV against torch
+   autograd of its plain version on 4 heads, and its forward and backward
+   timed on all 48;
+20. the same at Wan2.1-14B 720p per-level shapes (p from each level's own
+   lse; the plain version on 8 heads for the kernels, 2 for the lane);
+21. a small-input gradient check on the fused multilevel lane, the twin of
+   phase 7 (phase 14 holds the per-level lane's): LoRA gradients through
+   the 2-layer CogVideoX of phase 11, kernels (bf16, card) against plain
+   versions (f32, CPU), the card's lists replayed;
+22. one full-width LoRA gradient of CogVideoX-5B 480p on its serving lane
+   (42 blocks, fused multilevel, q_rows 256, remat): finite, timed, peak
+   memory, and exactly a layer one each of ``sparse_dq``, ``sparse_dkv``
+   and ``pack_kv``, three each of the pooled backward kernels, and two each
+   of the forward's predictor, pyramid pack and multi-level kernel;
+23. the CogVideoX training path: ``blade_torch.cli.train.main`` at full
+   width (``--family cogvideox``, 42 blocks, random weights, ASA energy
+   lane, remat, the DDPM family) for three TDM steps at the CLI defaults
+   (k_step 2, CFG 3.5, lambda_reg 0.5); finite losses, moved adapters, a
+   frozen base, exact launch counts a step (11 DiT forwards of 42 layers,
+   two backward passes).
 
 The second-to-last line is the card's ``name, power.limit``; before it, one
-JSON line with the per-kernel results (``launches`` sums the six paths,
-each counted from zero; ``launches_by_path`` splits them); the last line is
-the result object.
+JSON line with the per-kernel results (``launches`` sums the eight paths,
+each counted from zero; ``launches_by_path`` splits them); the summary line
+before that ends with the script's wall time.
 """
 
 import gc
@@ -477,82 +505,117 @@ def reference_check(torch, dev):
     return err
 
 
+# Backward tolerance: each gradient's max |err| <= 2e-2 * max |ref|.  The
+# kernels round p and ds to bf16 before each product (2^-9 relative a term,
+# as the TPU kernels feed the MXU) and the gradients to bf16 on output; the
+# plain backward is f32 throughout.
+BWD_REL = 2e-2
+
+
+def _bwd_check(torch, record, gen, kind, shape, q, k, v, mask, bias, reps, main=False):
+    """The dQ and the dK/dV kernels of dense (``mask=None``) or 128-row
+    sparse attention against the plain backward, with random ``g_out`` and
+    a non-zero ``g_lse``; a mask's empty rows must get no gradient."""
+    from blade_torch.kernels.block_sparse_attn import _backward_cuda, block_sparse_attention
+    from blade_torch.kernels.ref_attention import attention_backward_reference
+
+    d = q.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    with torch.no_grad():
+        out, lse = block_sparse_attention(q, k, v, mask, bias=bias)
+    g_out = torch.randn(q.shape, generator=gen, device=q.device).to(torch.bfloat16)
+    g_lse = torch.randn(lse.shape, generator=gen, device=q.device)
+    args = (q, k, v, out, lse, g_out, g_lse, mask, scale, bias)
+    got = dict(zip(("dq", "dk", "dv"), _backward_cuda(*args)))
+
+    def plain():
+        return attention_backward_reference(q, k, v, out, lse, g_out, g_lse,
+                                            block_mask=mask, block_k=128,
+                                            scale=scale, bias=bias)
+
+    want = dict(zip(("dq", "dk", "dv"), plain()))
+    for name in got:
+        assert torch.isfinite(got[name].float()).all(), (kind, shape, name)
+    if mask is not None:
+        empty = (~mask.reshape(-1, mask.shape[-1]).any(-1)).nonzero()
+        assert empty.numel(), "the forced empty row is missing"
+        for row in empty[:, 0].tolist():
+            bh, qb = divmod(row, mask.shape[-2])
+            rows = got["dq"].reshape(-1, q.shape[2], d)[bh, qb * 128:(qb + 1) * 128]
+            assert rows.float().abs().max().item() == 0.0, "empty row has a gradient"
+    plain_ms = _cuda_ms(torch, plain, 1)
+    lq, lk = q.shape[2], k.shape[2]
+    pairs = (q.shape[0] * q.shape[1] * float(lq) * lk if mask is None
+             else _block_pairs(mask, lq, lk))
+    stats = _nbytes(q, k, v, g_out, lse, g_lse) + 4 * lse.numel()  # + delta
+    # dQ: S, dP, dQ products; dK/dV: S, dP, dV, dK (2 flops a multiply-add)
+    work = {"dq": (6.0 * d * pairs, stats + _nbytes(got["dq"])),
+            "dkv": (8.0 * d * pairs, stats + _nbytes(got["dk"], got["dv"]))}
+    for part, names in (("dq", ("dq",)), ("dkv", ("dk", "dv"))):
+        errs = {n: _max_err(got[n], want[n]) for n in names}
+        refs = {n: want[n].float().abs().max().item() for n in names}
+        per = ", ".join(f"{n} {errs[n]:.2e}/{refs[n]:.2e}" for n in names)
+        ms = _cuda_ms(torch, lambda: _backward_cuda(*args, parts=(part,)), reps)
+        record(f"{kind}_{part}", shape, all(errs[n] <= BWD_REL * refs[n] for n in names),
+               max(errs.values()), ms, plain_ms,
+               f"2e-2*max|ref| per grad (err/max|ref|: {per}; plain = the whole "
+               "backward)", main, *work[part])
+
+
 def check_backward(torch, dev, checks):
     """Phase 6: the four backward kernels against the plain backward at
     main-path shapes, with random ``g_out`` and a non-zero ``g_lse``."""
     from blade_torch import config as C
     from blade_torch.attention import asa
-    from blade_torch.kernels.block_sparse_attn import (
-        _backward_cuda, block_sparse_attention)
-    from blade_torch.kernels.ref_attention import attention_backward_reference
     from blade_torch.utils.rng import make_generator
 
     gen = make_generator(4321, dev)
     h, d, L = 12, 128, 32760
-    scale = 1.0 / math.sqrt(d)
+    record = _recorder(checks)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
-    # Tolerance: each gradient's max |err| <= 2e-2 * max |ref|.  The kernels
-    # round p and ds to bf16 before each product (2^-9 relative a term, as
-    # the TPU kernels feed the MXU) and the gradients to bf16 on output; the
-    # plain backward is f32 throughout.
-    REL = 2e-2
-    record = _recorder(checks)
-
-    def bwd_check(kind, shape, q, k, v, mask, bias, reps, main=False):
-        with torch.no_grad():
-            out, lse = block_sparse_attention(q, k, v, mask, bias=bias)
-        g_out = randn(*q.shape)
-        g_lse = torch.randn(lse.shape, generator=gen, device=dev)
-        args = (q, k, v, out, lse, g_out, g_lse, mask, scale, bias)
-        got = dict(zip(("dq", "dk", "dv"), _backward_cuda(*args)))
-
-        def plain():
-            return attention_backward_reference(q, k, v, out, lse, g_out, g_lse,
-                                                block_mask=mask, block_k=128,
-                                                scale=scale, bias=bias)
-
-        want = dict(zip(("dq", "dk", "dv"), plain()))
-        for name in got:
-            assert torch.isfinite(got[name].float()).all(), (kind, shape, name)
-        if mask is not None:
-            empty = (~mask.reshape(-1, mask.shape[-1]).any(-1)).nonzero()
-            assert empty.numel(), "the forced empty row is missing"
-            for row in empty[:, 0].tolist():
-                bh, qb = divmod(row, mask.shape[-2])
-                rows = got["dq"].reshape(-1, q.shape[2], d)[bh, qb * 128:(qb + 1) * 128]
-                assert rows.float().abs().max().item() == 0.0, "empty row has a gradient"
-        plain_ms = _cuda_ms(torch, plain, 1)
-        lq, lk = q.shape[2], k.shape[2]
-        pairs = (q.shape[0] * q.shape[1] * float(lq) * lk if mask is None
-                 else _block_pairs(mask, lq, lk))
-        stats = _nbytes(q, k, v, g_out, lse, g_lse) + 4 * lse.numel()  # + delta
-        # dQ: S, dP, dQ products; dK/dV: S, dP, dV, dK (2 flops a multiply-add)
-        work = {"dq": (6.0 * d * pairs, stats + _nbytes(got["dq"])),
-                "dkv": (8.0 * d * pairs, stats + _nbytes(got["dk"], got["dv"]))}
-        for part, names in (("dq", ("dq",)), ("dkv", ("dk", "dv"))):
-            errs = {n: _max_err(got[n], want[n]) for n in names}
-            refs = {n: want[n].float().abs().max().item() for n in names}
-            per = ", ".join(f"{n} {errs[n]:.2e}/{refs[n]:.2e}" for n in names)
-            ms = _cuda_ms(torch, lambda: _backward_cuda(*args, parts=(part,)), reps)
-            record(f"{kind}_{part}", shape, all(errs[n] <= REL * refs[n] for n in names),
-                   max(errs.values()), ms, plain_ms,
-                   f"2e-2*max|ref| per grad (err/max|ref|: {per}; plain = the whole "
-                   "backward)", main, *work[part])
-
     q, k, v = randn(1, h, L, d), randn(1, h, L, d), randn(1, h, L, d)
     kp = (k.float().reshape(1, h, -1, 30, d).mean(3)).to(torch.bfloat16)
     vp = (v.float().reshape(1, h, -1, 30, d).mean(3)).to(torch.bfloat16)
-    bwd_check("dense", "pooled q,dO [1,12,32760,128] k,v [1,12,1092,128]", q, kp, vp,
-              None, math.log(30.0), reps=10, main=True)
-    bwd_check("dense", "dense leg q,k,v,dO [1,12,32760,128]", q, k, v, None, 0.0, reps=2)
+    _bwd_check(torch, record, gen, "dense", "pooled q,dO [1,12,32760,128] k,v [1,12,1092,128]",
+               q, kp, vp, None, math.log(30.0), reps=10, main=True)
+    _bwd_check(torch, record, gen, "dense", "dense leg q,k,v,dO [1,12,32760,128]", q, k, v,
+               None, 0.0, reps=2)
     cfg = C.derive_asa_config(C.WAN_480P)
     mask = asa.compute_mask(q, k, cfg, generator=make_generator(17, dev))
     mask[0, 5, 100] = False  # one forced empty row
-    bwd_check("sparse", f"q,k,v,dO [1,12,32760,128] density "
-              f"{mask.float().mean().item():.4f}", q, k, v, mask, 0.0, reps=5, main=True)
+    _bwd_check(torch, record, gen, "sparse", f"q,k,v,dO [1,12,32760,128] density "
+               f"{mask.float().mean().item():.4f}", q, k, v, mask, 0.0, reps=5, main=True)
+
+
+def _lora_grads(torch, model, lora, inputs, cot, device, **attn_kwargs):
+    """LoRA gradients of ``sum(v * cot)`` through ``model`` on ``device``,
+    the velocity ``v`` and the mask artifact (when ``collect_mask`` is
+    set)."""
+    from blade_torch.training.lora import merge_lora
+
+    base = {n: p.detach() for n, p in model.named_parameters()}
+    leaves = {k: v.to(device).requires_grad_(True) for k, v in lora.items()}
+    out = torch.func.functional_call(
+        model, merge_lora(base, leaves, alpha=4.0, rank=4),
+        tuple(x.to(device) for x in inputs), {"attn_kwargs": attn_kwargs})
+    vel, masks = out if isinstance(out, tuple) else (out, None)
+    grads = torch.autograd.grad((vel.float() * cot.to(device)).sum(), list(leaves.values()))
+    return {k: gr.float().cpu() for k, gr in zip(leaves, grads)}, vel.detach(), masks
+
+
+def _test_lora(torch, model, g, seed):
+    """Rank-4 factors over ``model``'s targets, ``a`` from ``seed``, ``b``
+    from the CPU generator ``g`` (init_lora's are zero) so every factor has
+    a gradient."""
+    from blade_torch.training.lora import init_lora
+    from blade_torch.utils.rng import make_generator
+
+    base = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    return {k: (v if k.endswith(".a") else 0.05 * torch.randn(v.shape, generator=g))
+            for k, v in init_lora(make_generator(seed), base, rank=4).items()}
 
 
 def gradient_check(torch, dev):
@@ -560,32 +623,19 @@ def gradient_check(torch, dev):
     through the small ASA model, kernels (bf16, card) against plain
     versions (f32, CPU), with shared weights and adapters and the card's
     masks replayed."""
-    from blade_torch.training.lora import init_lora, merge_lora
     from blade_torch.utils.rng import make_generator
 
     card, cpu = _small_asa_models(torch, dev, 21)
     g = torch.Generator().manual_seed(22)
-    base_cpu = {n: p.detach() for n, p in cpu.named_parameters()}
-    # random b factors (init_lora's are zero) so every factor has a gradient
-    lora = {k: (v if k.endswith(".a") else 0.05 * torch.randn(v.shape, generator=g))
-            for k, v in init_lora(make_generator(23), base_cpu, rank=4).items()}
+    lora = _test_lora(torch, cpu, g, 23)
     x = torch.randn(1, 16, 4, 30, 32, generator=g)
     text = torch.randn(1, 8, 64, generator=g)
     cot = torch.randn(1, 16, 4, 30, 32, generator=g)
-    t = torch.tensor([700.0])
-
-    def lora_grads(model, device, **attn_kwargs):
-        base = {n: p.detach() for n, p in model.named_parameters()}
-        leaves = {k: v.to(device).requires_grad_(True) for k, v in lora.items()}
-        out = torch.func.functional_call(
-            model, merge_lora(base, leaves, alpha=4.0, rank=4),
-            (x.to(device), t.to(device), text.to(device)), {"attn_kwargs": attn_kwargs})
-        vel, masks = out if isinstance(out, tuple) else (out, None)
-        grads = torch.autograd.grad((vel.float() * cot.to(device)).sum(), list(leaves.values()))
-        return {k: gr.float().cpu() for k, gr in zip(leaves, grads)}, masks
-
-    got, masks = lora_grads(card, dev, generator=make_generator(24, dev), collect_mask=True)
-    want, _ = lora_grads(cpu, torch.device("cpu"), masks=masks.cpu())
+    inputs = (x, torch.tensor([700.0]), text)
+    got, _, masks = _lora_grads(torch, card, lora, inputs, cot, dev,
+                                generator=make_generator(24, dev), collect_mask=True)
+    want, _, _ = _lora_grads(torch, cpu, lora, inputs, cot, torch.device("cpu"),
+                             masks=masks.cpu())
     err = max((got[k] - want[k]).abs().max().item() for k in want)
     ref = max(w.abs().max().item() for w in want.values())
     density = masks.float().mean().item()
@@ -941,11 +991,13 @@ def serve_wan14b(torch, dev):
 
 
 def wan14b_reference_check(torch, dev):
-    """Phase 14, the twin of phases 5 and 11 on the per-level lane: a small
-    Wan (2 layers of width 128, one head of 128) over a 21 x 32 x 52 latent
-    grid, 34 944 tokens in 273 key blocks, so the lane choice itself picks
-    the per-level lane; kernels (bf16, card) against plain versions (f32,
-    CPU) with shared weights and the card's int level masks replayed."""
+    """Phase 14, the twin of phases 5 and 11 on the per-level lane, and of
+    phase 7 for its gradient: a small Wan (2 layers of width 128, one head
+    of 128) over a 21 x 32 x 52 latent grid, 34 944 tokens in 273 key
+    blocks, so the lane choice itself picks the per-level lane; kernels
+    (bf16, card) against plain versions (f32, CPU) with shared weights and
+    adapters and the card's int level masks replayed: the velocity and the
+    LoRA gradients of one loss, from one forward and backward each."""
     from blade_torch.attention.asa import ASAConfig
     from blade_torch.attention.integration import asa_model_kwargs
     from blade_torch.kernels.multilevel_attn import fused_supported
@@ -960,27 +1012,35 @@ def wan14b_reference_check(torch, dev):
     card.random_init_(make_generator(41, dev))
     cpu = WanModel(cfg, dtype=torch.float32, **asa_model_kwargs(asa_cfg)).eval()
     cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    card.requires_grad_(False)
+    cpu.requires_grad_(False)
     g = torch.Generator().manual_seed(42)
     x = torch.randn(1, 16, 21, 64, 104, generator=g)
     text = torch.randn(1, 8, 64, generator=g)
-    t = torch.tensor([700.0])
-    with torch.inference_mode():
-        v_card, levels = card(x.to(dev), t.to(dev), text.to(dev),
-                              attn_kwargs={"generator": make_generator(43, dev),
-                                           "collect_mask": True})
-        t0 = time.perf_counter()
-        v_cpu = cpu(x, t, text, attn_kwargs={"masks": levels.cpu()})
-        cpu_s = time.perf_counter() - t0
+    cot = torch.randn(x.shape, generator=g)
+    lora = _test_lora(torch, cpu, g, 44)
+    inputs = (x, torch.tensor([700.0]), text)
+    got, v_card, levels = _lora_grads(torch, card, lora, inputs, cot, dev,
+                                      generator=make_generator(43, dev), collect_mask=True)
+    t0 = time.perf_counter()
+    want, v_cpu, _ = _lora_grads(torch, cpu, lora, inputs, cot, torch.device("cpu"),
+                                 masks=levels.cpu())
+    cpu_s = time.perf_counter() - t0
     err = (v_card.float().cpu() - v_cpu).abs().max().item()
     scale = v_cpu.abs().max().item()
+    g_err = max((got[k] - want[k]).abs().max().item() for k in want)
+    g_ref = max(w.abs().max().item() for w in want.values())
     shares = {lv: round((levels == lv).float().mean().item(), 4) for lv in (0, 1, 2, 4, 8)}
-    print(f"wan14b-lane reference check: v max_abs_err {err:.4e} (bf16 kernels on the card vs "
-          f"f32 plain on the CPU in {cpu_s:.1f} s, |ref| max {scale:.3f}, level shares "
-          f"{shares}, tol 5e-2*|ref|max)")
+    print(f"wan14b-lane reference check: v max_abs_err {err:.4e} (|ref| max {scale:.3f}), "
+          f"LoRA grads max_abs_err {g_err:.4e} over {len(want)} factors (|ref| max "
+          f"{g_ref:.3f}); bf16 kernels on the card vs f32 plain on the CPU (forward and "
+          f"backward in {cpu_s:.1f} s), level shares {shares}, tol 5e-2*|ref|max each")
     assert torch.isfinite(v_card).all() and levels.shape == (2, 1, 1, 273, 273)
     assert levels.dtype == torch.int32 and all(shares[lv] > 0 for lv in (1, 2, 4, 8))
+    assert all(torch.isfinite(v).all() for v in got.values())
     assert err <= 5e-2 * scale, (err, scale)
-    return err
+    assert g_err <= 5e-2 * g_ref, (g_err, g_ref)
+    return err, g_err
 
 
 def _with_union(bsa, fn):
@@ -1237,6 +1297,419 @@ def serve_union(torch, dev, stock):
     return results, launches, density
 
 
+def check_cog_energy(torch, dev, checks):
+    """Phase 18: the d = 64 forms of the energy lane's kernels at the
+    CogVideoX-5B 480p training shapes (B=1, H=48, d=64, L=17776 with the 226
+    text tokens, an energy mask from the real predictor plus one forced
+    empty row): the sparse forward and ``pack_kv`` against their plain
+    versions, the sparse backward kernels, and the dense backward kernels
+    on the pooled branch (K/V pooled by the preset's gap, +log gap bias)."""
+    from blade_torch import config as C
+    from blade_torch.attention import asa
+    from blade_torch.attention.masks import pad_to_block_multiple
+    from blade_torch.kernels.block_sparse_attn import block_sparse_attention
+    from blade_torch.kernels.pack import _pack_kv_reference, pack_kv
+    from blade_torch.kernels.ref_attention import block_masked_attention
+    from blade_torch.utils.rng import make_generator
+
+    gen = make_generator(2031, dev)
+    record = _recorder(checks)
+    cfg = C.derive_asa_config(C.COGVIDEOX_480P, "energy")
+    h, d, length, gap = COG_HEADS, COG_HEAD_DIM, cfg.seq_len, cfg.sample_gap
+    assert length == COG_TOKENS and cfg.text_length == 226
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    q, k, v = (randn(1, h, length, d) for _ in range(3))
+    mask = asa.compute_mask(q, k, cfg, generator=make_generator(29, dev))
+    mask[0, 7, 30] = False  # one forced empty row
+    density = mask.float().mean().item()
+    kf, vf = k.reshape(h, length, d), v.reshape(h, length, d)
+    rec = pack_kv(kf, vf)
+    want = _pack_kv_reference(kf, vf)
+    record("pack_kv", f"cog k,v [{h},{length},{d}]", torch.equal(rec, want),
+           _max_err(rec, want), _cuda_ms(torch, lambda: pack_kv(kf, vf), 20),
+           _cuda_ms(torch, lambda: _pack_kv_reference(kf, vf), 5), "bit exact", False, 0.0,
+           _nbytes(kf, vf, rec))
+    pairs = _block_pairs(mask, length, length)
+    _attn_check(torch, record, "sparse_fwd",
+                f"cog q,k,v [1,{h},{length},{d}] density {density:.4f}",
+                lambda: block_sparse_attention(q, k, v, mask),
+                lambda: block_masked_attention(q, k, v, mask, block_k=128), 5, 1, False,
+                4.0 * d * pairs, _nbytes(q, k, v, mask))
+    _bwd_check(torch, record, gen, "sparse", f"cog q,k,v,dO [1,{h},{length},{d}] density "
+               f"{density:.4f}", q, k, v, mask, 0.0, reps=3)
+    kp, vp = (pad_to_block_multiple(t, gap).float().reshape(1, h, -1, gap, d).mean(3)
+              .to(torch.bfloat16) for t in (k, v))
+    _bwd_check(torch, record, gen, "dense",
+               f"cog pooled q,dO [1,{h},{length},{d}] k,v [1,{h},{kp.shape[2]},{d}]",
+               q, kp, vp, None, math.log(gap), reps=10)
+    return density
+
+
+def _pooled_bwd_check(torch, record, shape, q, rec, out, lse, g_out, g_lse, delta, mask,
+                      level, lk, heads, reps, main):
+    """Both pooled backward kernels of one level (``q, out, g_out [BH, Lq,
+    d]``, the level's records, a 128-row mask ``[BH, n_qt, n_kt]``) timed on
+    every head and held against the plain pooled backward on the first
+    ``heads`` heads at full sequence length."""
+    from blade_torch.attention.masks import mask_to_block_lists
+    from blade_torch.kernels.multilevel_attn import (
+        pooled_level_dkv_from_records, pooled_level_dq_from_records)
+    from blade_torch.kernels.ref_attention import pooled_level_backward_reference
+
+    bh, lq, d = q.shape
+    seg, pvl = 128 // level, -(-lk // level)
+    n_kt = rec.shape[1] // (2 * seg)
+    idx, cnt = (t.contiguous() for t in mask_to_block_lists(mask))
+    t_idx, t_cnt = (t.contiguous() for t in mask_to_block_lists(mask.transpose(-1, -2)))
+    kw = dict(level=level, scale=1.0 / math.sqrt(d), pooled_valid_len=pvl)
+    stats = (q, rec, out, lse, g_out, g_lse, delta)
+
+    def dq_fn():
+        return pooled_level_dq_from_records(*stats, idx, cnt, **kw)
+
+    def dkv_fn():
+        return pooled_level_dkv_from_records(*stats, t_idx, t_cnt, **kw)
+
+    got = {"dq": dq_fn()}
+    got["dk"], got["dv"] = dkv_fn()
+    hs = slice(0, heads)
+    pooled = rec[hs].view(heads, n_kt, 2, seg, d)
+    k_pool, v_pool = (pooled[:, :, i].reshape(heads, n_kt * seg, d) for i in (0, 1))
+
+    def plain():
+        return pooled_level_backward_reference(
+            q[hs], k_pool, v_pool, out[hs], lse[hs], g_out[hs], g_lse[hs], mask[hs],
+            delta=delta[hs], **kw)
+
+    want = dict(zip(("dq", "dk", "dv"), plain()))
+    for name, g in got.items():
+        assert torch.isfinite(g.float()).all(), (shape, name)
+    if pvl < n_kt * seg:  # dead pooled rows get nothing
+        assert all(g[:, pvl:].float().abs().max().item() == 0.0
+                   for g in (got["dk"], got["dv"]))
+    plain_ms = _cuda_ms(torch, plain, 1)
+    pairs = _level_pairs(idx, cnt, lq, lk, level, 128)
+    nbytes = _nbytes(q, rec, g_out, lse, g_lse, delta, idx, cnt)
+    work = {"dq": (6.0 * d * pairs, nbytes + _nbytes(got["dq"])),
+            "dkv": (8.0 * d * pairs, nbytes + _nbytes(got["dk"], got["dv"]))}
+    for part, names, fn in (("dq", ("dq",), dq_fn), ("dkv", ("dk", "dv"), dkv_fn)):
+        errs = {n: _max_err(got[n][hs], want[n]) for n in names}
+        refs = {n: want[n].float().abs().max().item() for n in names}
+        per = ", ".join(f"{n} {errs[n]:.2e}/{refs[n]:.2e}" for n in names)
+        record(f"pooled_level_{part}",
+               f"{shape} level {level} key share {pairs / (bh * float(lq) * lk):.4f}",
+               all(errs[n] <= BWD_REL * refs[n] for n in names), max(errs.values()),
+               _cuda_ms(torch, fn, reps), plain_ms,
+               f"2e-2*max|ref| per grad (err/max|ref|: {per}; plain = the level's whole "
+               f"backward on heads 0-{heads - 1}, the kernel on all {bh})",
+               main and level == 2, *work[part])
+
+
+def _lane_gradient(torch, name, q, k, v, lane_kw, plain_lists, q_rows, heads, step, gen):
+    """The whole lane's dQ, dK, dV (``multilevel_attention``, bf16, every
+    head) against torch autograd of its plain version
+    (``multilevel_lists_attention`` in f32 on the first ``heads`` heads,
+    evaluated ``step`` mask rows at a time: the loss is a sum over query
+    rows, so the chunks' gradients add up to the whole); the lane's forward
+    and backward timed on every head."""
+    from blade_torch.kernels.multilevel_attn import multilevel_attention
+    from blade_torch.kernels.ref_attention import multilevel_lists_attention
+
+    g_out = torch.randn(q.shape, generator=gen, device=q.device).to(torch.bfloat16)
+    g_lse = torch.randn(q.shape[:3], generator=gen, device=q.device)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out, lse = multilevel_attention(*leaves, **lane_kw)
+    got = torch.autograd.grad((out, lse), leaves, (g_out, g_lse), retain_graph=True)
+    with torch.no_grad():
+        fwd_ms = _cuda_ms(torch, lambda: multilevel_attention(q, k, v, **lane_kw), 3)
+    bwd_ms = _cuda_ms(torch, lambda: torch.autograd.grad((out, lse), leaves, (g_out, g_lse),
+                                                         retain_graph=True), 3)
+    del out, lse
+    hs = slice(0, heads)
+    qf, kf, vf = (t[:, hs].float().requires_grad_(True) for t in (q, k, v))
+    idx, cnt = (t[:, hs] for t in plain_lists)
+    length = q.shape[2]
+    t0 = time.perf_counter()
+    for m0 in range(0, idx.shape[2], step):
+        r0, r1 = m0 * q_rows, min(length, (m0 + step) * q_rows)
+        o, s = multilevel_lists_attention(qf[:, :, r0:r1], kf, vf,
+                                          (idx[:, :, m0:m0 + step], cnt[:, :, m0:m0 + step]),
+                                          q_rows=q_rows)
+        torch.autograd.backward((o, s), (g_out[:, hs, r0:r1].float(), g_lse[:, hs, r0:r1]))
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    errs, refs = {}, {}
+    for n, g, w in zip(("dq", "dk", "dv"), got, (qf.grad, kf.grad, vf.grad)):
+        assert torch.isfinite(g.float()).all(), (name, n)
+        errs[n], refs[n] = _max_err(g[:, hs], w), w.abs().max().item()
+    ok = all(errs[n] <= BWD_REL * refs[n] for n in errs)
+    res = dict(lane=name, fwd_ms=fwd_ms, bwd_ms=bwd_ms, plain_heads=heads, plain_s=plain_s,
+               **{f"{n}_err": errs[n] for n in errs}, **{f"{n}_ref": refs[n] for n in refs})
+    print(f"lane gradient {name}: " + json.dumps(res) + f" tol 2e-2*max|ref| {'ok' if ok else 'FAIL'}")
+    assert ok, res
+    return res
+
+
+def check_multilevel_backward(torch, dev, checks):
+    """Phases 19 and 20: the pooled backward kernels against their plain
+    version, then the whole lane's gradient against torch autograd of its
+    plain version, at CogVideoX-5B 480p fused-lane shapes (B=1, H=48, d=64,
+    L=17776, q_rows 256, lists from the real predictor; p from the merged
+    lse) and at Wan2.1-14B 720p per-level shapes (H=40, d=128, L=75600, a
+    128-row level mask from the real predictor; p from each level's own
+    lse), with a non-zero LSE cotangent."""
+    from blade_torch import config as C
+    from blade_torch.attention import asa
+    from blade_torch.kernels.multilevel_attn import (
+        levels_to_lists, multilevel_from_records, pooled_level_from_records)
+    from blade_torch.attention.masks import mask_to_block_lists
+    from blade_torch.kernels.pack import pack_kv_pyramid
+    from blade_torch.kernels.ref_attention import lists_to_level_masks
+    from blade_torch.utils.rng import make_generator
+
+    gen = make_generator(2032, dev)
+    record = _recorder(checks)
+    lanes = {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    # CogVideoX-5B 480p, the fused lane: the four levels' lists of 256-row
+    # mask rows, each repeated onto its two 128-row tiles.
+    cfg = C.derive_asa_config(C.COGVIDEOX_480P, "multilevel")
+    h, d, length, q_rows = COG_HEADS, COG_HEAD_DIM, cfg.seq_len, cfg.multilevel_q_rows
+    assert q_rows == 256
+    q, k, v = (randn(1, h, length, d) for _ in range(3))
+    idx, cnt = asa.compute_lists(q, k, cfg, generator=make_generator(9, dev))
+    records = pack_kv_pyramid(k.reshape(h, length, d), v.reshape(h, length, d))
+    n_qt, n_kt = -(-length // 128), -(-length // 128)
+    with torch.no_grad():
+        out, lse = multilevel_from_records(q, records, idx, cnt, length, q_rows,
+                                           1.0 / math.sqrt(d))
+    g_out = randn(h, length, d)
+    g_lse = torch.randn((h, length), generator=gen, device=dev)
+    q3, out3 = q.reshape(h, length, d), out.reshape(h, length, d)
+    lse3 = lse.reshape(h, length)
+    delta = (g_out.float() * out3.float()).sum(-1)
+    masks = lists_to_level_masks(idx, cnt, n_kt).repeat_interleave(2, dim=2)[:, :, :n_qt]
+    for li, level in ((1, 2), (2, 4), (3, 8)):
+        _pooled_bwd_check(torch, record, f"cog fused q [1,{h},{length},{d}] q_rows 256",
+                          q3, records[li], out3, lse3, g_out, g_lse, delta,
+                          masks[0, :, :, li].contiguous(), level, length, h, 10, True)
+    del records, out, lse, masks
+    lanes["cog_fused"] = _lane_gradient(
+        torch, f"cog fused [1,{h},{length},{d}] q_rows 256", q, k, v,
+        dict(lists=(idx, cnt), q_rows=q_rows), (idx, cnt), q_rows, 4, 8, gen)
+    del q, k, v, idx, cnt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Wan2.1-14B 720p, the per-level lane: each pooled level against its own
+    # (out_l, lse_l).
+    cfg = C.derive_asa_config(C.WAN_14B_720P, "multilevel")
+    h, d, length = C.WAN_14B_720P.dit.num_heads, C.WAN_14B_720P.dit.head_dim, cfg.seq_len
+    assert (h, d, length) == (40, 128, 75600)
+    q, k, v = (randn(1, h, length, d) for _ in range(3))
+    levels = asa.compute_mask(q, k, cfg, generator=make_generator(19, dev))
+    n_kt = -(-length // 128)
+    records = pack_kv_pyramid(k.reshape(h, length, d), v.reshape(h, length, d))
+    q3 = q.reshape(h, length, d)
+    g_out = randn(h, length, d)
+    g_lse = torch.randn((h, length), generator=gen, device=dev)
+    for level, rec in zip((2, 4, 8), records[1:]):
+        mask = (levels == level).reshape(h, n_kt, n_kt)
+        lists = (t.contiguous() for t in mask_to_block_lists(mask))
+        out_l, lse_l = pooled_level_from_records(q3, rec, *lists, level=level,
+                                                 scale=1.0 / math.sqrt(d),
+                                                 pooled_valid_len=-(-length // level))
+        delta = (g_out.float() * out_l.float()).sum(-1)
+        _pooled_bwd_check(torch, record, f"wan14b per-level q [1,{h},{length},{d}]", q3, rec,
+                          out_l, lse_l, g_out, g_lse, delta, mask, level, length, 8, 5, False)
+        del out_l, lse_l, delta
+    del records
+    lanes["wan14b_per_level"] = _lane_gradient(
+        torch, f"wan14b per-level [1,{h},{length},{d}]", q, k, v, dict(levels=levels),
+        levels_to_lists(levels[:, :2]), 128, 2, 8, gen)
+    return lanes
+
+
+def multilevel_gradient_check(torch, dev):
+    """Phase 21, the multilevel twin of phase 7 on the fused lane (phase 14
+    holds the per-level lane's gradient): LoRA gradients of one loss through
+    the 2-layer CogVideoX of phase 11 (256-row lists), kernels (bf16, card)
+    against plain versions (f32, CPU), shared weights and adapters, the
+    card's lists replayed."""
+    from blade_torch.attention.asa import ASAConfig
+    from blade_torch.attention.integration import asa_model_kwargs
+    from blade_torch.models.cogvideox_dit import COGVIDEOX_TINY, CogVideoXModel
+    from blade_torch.utils.rng import make_generator
+
+    asa_cfg = ASAConfig(latent_width=16, latent_height=16, latent_frames=4, text_length=16,
+                        mask_mode="multilevel", multilevel_q_rows=256)
+    card = CogVideoXModel(COGVIDEOX_TINY, dtype=torch.bfloat16, device=dev,
+                          **asa_model_kwargs(asa_cfg))
+    card.random_init_(make_generator(62, dev))
+    cpu = CogVideoXModel(COGVIDEOX_TINY, dtype=torch.float32, **asa_model_kwargs(asa_cfg))
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    card.requires_grad_(False)
+    cpu.requires_grad_(False)
+    g = torch.Generator().manual_seed(61)
+    x = torch.randn(1, 4, 16, 32, 32, generator=g)
+    text = torch.randn(1, 16, 64, generator=g)
+    cot = torch.randn(x.shape, generator=g)
+    lora = _test_lora(torch, cpu, g, 64)
+    inputs = (x, torch.tensor([700.0]), text)
+    got, _, (idx, cnt) = _lora_grads(torch, card, lora, inputs, cot, dev,
+                                     generator=make_generator(65, dev), collect_mask=True)
+    want, _, _ = _lora_grads(torch, cpu, lora, inputs, cot, torch.device("cpu"),
+                             masks=(idx.cpu(), cnt.cpu()))
+    err = max((got[k] - want[k]).abs().max().item() for k in want)
+    ref = max(w.abs().max().item() for w in want.values())
+    counts = cnt.float().mean(dim=(0, 1, 2, 3)).tolist()
+    print(f"multilevel gradient check (cogvideox, fused lane): LoRA grads max_abs_err "
+          f"{err:.4e} over {len(want)} factors (bf16 kernels on the card vs f32 plain on "
+          f"the CPU, |ref| max {ref:.3f}, mean list counts per level "
+          f"{[round(c, 2) for c in counts]}, tol 5e-2*|ref|max)")
+    assert all(torch.isfinite(v).all() for v in got.values()) and all(c > 0 for c in counts)
+    assert err <= 5e-2 * ref, (err, ref)
+    return err
+
+
+def cog_multilevel_gradient(torch, dev):
+    """Phase 22: one full-width LoRA gradient of CogVideoX-5B 480p on its
+    serving lane (42 blocks, the fused multilevel lane, q_rows 256, remat),
+    the gradient JAX's custom VJP defines; exact launch counts a layer."""
+    from blade_torch import config as C
+    from blade_torch.attention.integration import asa_model_kwargs
+    from blade_torch.kernels._build import KERNELS, reset_launch_counts
+    from blade_torch.models.cogvideox_dit import CogVideoXModel
+    from blade_torch.training.lora import init_lora, merge_lora
+    from blade_torch.utils.rng import make_generator
+
+    preset = C.COGVIDEOX_480P
+    cfg = C.derive_asa_config(preset)  # the serving default: multilevel
+    assert cfg.mask_mode == "multilevel" and cfg.multilevel_q_rows == 256
+    t0 = time.perf_counter()
+    model = CogVideoXModel(preset.dit, dtype=torch.bfloat16, remat=True, device=dev,
+                           **asa_model_kwargs(cfg))
+    model.random_init_(make_generator(71, dev))
+    model.to(torch.bfloat16).requires_grad_(False)
+    base = {n: p.detach() for n, p in model.named_parameters()}
+    lora = init_lora(make_generator(72, dev), base, rank=64)
+    g = make_generator(73, dev)
+    for key in lora:  # non-zero b, so every factor has a gradient
+        if key.endswith(".b"):
+            lora[key] = 0.01 * torch.randn(lora[key].shape, generator=g, device=dev)
+    lat_shape = (1, 13, 16, 60, 90)
+    x = torch.randn(lat_shape, generator=g, device=dev).to(torch.bfloat16)
+    text = torch.randn((1, 226, 4096), generator=g, device=dev).to(torch.bfloat16)
+    cot = torch.randn(lat_shape, generator=g, device=dev)
+    t = torch.full((1,), 700.0, device=dev)
+    torch.cuda.synchronize()
+    print(f"cog multilevel gradient: model built in {time.perf_counter() - t0:.1f} s")
+
+    def grads():
+        leaves = {k: v.requires_grad_(True) for k, v in lora.items()}
+        v = torch.func.functional_call(model, merge_lora(base, leaves, alpha=64.0, rank=64),
+                                       (x, t, text),
+                                       {"attn_kwargs": {"generator": make_generator(74, dev)}})
+        return torch.autograd.grad((v.float() * cot).sum(), list(leaves.values()))
+
+    grads()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = grads()
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    assert all(torch.isfinite(gr).all() for gr in out)
+    n = preset.dit.num_layers
+    want = {"dense_fwd": 2 * n, "pack_kv_pyramid": 2 * n, "multilevel_fwd": 2 * n,
+            "sparse_dq": n, "sparse_dkv": n, "pack_kv": n,
+            "pooled_level_dq": 3 * n, "pooled_level_dkv": 3 * n}
+    print("cog multilevel gradient launches " + json.dumps(launches))
+    for name, count in launches.items():
+        assert count == want.get(name, 0), (name, count, want.get(name, 0))
+    res = dict(grad_s=grad_s, peak_mem_gib=peak, n_factors=len(out),
+               grad_abs_max=max(gr.abs().max().item() for gr in out))
+    print("cog multilevel gradient " + json.dumps(res))
+    del model, base, lora, out
+    return res, launches
+
+
+def _tdm_forwards(k_step, cfg, lambda_reg):
+    """DiT forwards a TDM step runs with remat: the k_step trajectory, the
+    student's x0, the teacher's x0 when lambda_reg > 0, the fake and the
+    generator forwards with gradient (each recomputed in its backward), the
+    teacher's guided prediction (two forwards with CFG) and the fake's."""
+    return k_step + 1 + (lambda_reg > 0) + 2 * 2 + (2 if cfg != 1.0 else 1) + 1
+
+
+def train_cog(torch, dev):
+    """Phase 23, the CogVideoX training path: ``blade_torch.cli.train.main``
+    at full width (``cogvideox-5b-480p``, 42 blocks, 48 heads of 64, 17776
+    tokens with the 226 text tokens, random weights, ASA energy lane, remat,
+    the DDPM family), three TDM steps at the CLI defaults; exact launch
+    counts a step at d = 64."""
+    import tempfile
+
+    from blade_torch.cli import train as cli
+    from blade_torch.kernels._build import KERNELS, reset_launch_counts
+
+    argv = ["--family", "cogvideox", "--random-init", "--batch_size", "1", "--k_step", "2",
+            "--max_train_steps", "3", "--seed", "42"]
+    args = cli.get_args(argv + ["--output_dir", "unused"])
+    per_step = []
+
+    def on_step(rec, state):
+        per_step.append({name: k.launches for name, k in KERNELS.items()})
+        reset_launch_counts()
+
+    with tempfile.TemporaryDirectory(prefix="blade_torch_train_cog_") as out:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        state, history = cli.main(argv + ["--output_dir", out], on_step=on_step)
+        peak = torch.cuda.max_memory_allocated()
+        assert os.path.exists(os.path.join(out, "tdm_lora.npz"))
+    assert len(history) == 3 and state.step == 3
+    for rec in history:
+        assert math.isfinite(rec["loss_fake"]) and math.isfinite(rec["loss_du"]), rec
+        assert not rec["fake_skipped"], rec  # no fake-loss guard for CogVideoX
+    layers = 42
+    fwd = _tdm_forwards(args.k_step, args.cfg, args.lambda_reg) * layers
+    want = {"dense_fwd": 2 * fwd, "sparse_fwd": fwd, "pack_kv": fwd + 2 * layers,
+            "dense_dq": 2 * layers, "dense_dkv": 2 * layers, "sparse_dq": 2 * layers,
+            "sparse_dkv": 2 * layers}
+    for i, counts in enumerate(per_step):
+        print(f"train_cog step {i} launches " + json.dumps(counts))
+        for name, count in counts.items():
+            assert count == want.get(name, 0), (i, name, count, want.get(name, 0))
+    moved_g = sum(state.lora_g[k].abs().sum().item() for k in state.lora_g if k.endswith(".b"))
+    moved_f = sum(state.lora_f[k].abs().sum().item() for k in state.lora_f if k.endswith(".b"))
+    assert moved_g > 0 and moved_f > 0, (moved_g, moved_f)
+    assert not any("attn2" in k for k in state.lora_g)
+    fresh = cli.build_model(args, cli.build_preset(args), dev)
+    assert all(torch.equal(p, state.base[n]) for n, p in fresh.named_parameters()), \
+        "the frozen base changed"
+    del fresh
+    warm = [r["step_s"] for r in history[1:]]
+    res = dict(s_per_step_warm=sum(warm) / len(warm), step_s=[r["step_s"] for r in history],
+               loss_fake=[r["loss_fake"] for r in history],
+               loss_du=[r["loss_du"] for r in history], peak_mem_gib=peak / 2**30,
+               lora_g_b_abs_sum=moved_g, lora_f_b_abs_sum=moved_f,
+               forwards_a_step=fwd // layers)
+    print("train_cog " + json.dumps(res))
+    launches = {name: sum(c[name] for c in per_step) for name in KERNELS}
+    return res, launches
+
+
 def main():
     try:
         import torch
@@ -1253,6 +1726,7 @@ def main():
     except ImportError:
         print("chip_smoke: blade_torch not found next to this script", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     smi = _nvidia_smi()
     print(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -1286,17 +1760,32 @@ def main():
     w14_results, w14_launches, w14_dense_ms, w14_params = serve_wan14b(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    w14_ref_err = wan14b_reference_check(torch, dev)
+    w14_ref_err, w14_grad_err = wan14b_reference_check(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
     check_last_kernels(torch, dev, checks)
-    assert set(checks) == set(_build.KERNELS), (set(checks), set(_build.KERNELS))
     gc.collect()
     torch.cuda.empty_cache()
     max_results, max_launches, max_density, max_ref_err = serve_maxpred(torch, dev, results[1])
     gc.collect()
     torch.cuda.empty_cache()
     union_results, union_launches, stock_density = serve_union(torch, dev, results[1])
+    gc.collect()
+    torch.cuda.empty_cache()
+    cog_energy_density = check_cog_energy(torch, dev, checks)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lanes = check_multilevel_backward(torch, dev, checks)
+    assert set(checks) == set(_build.KERNELS), (set(checks), set(_build.KERNELS))
+    gc.collect()
+    torch.cuda.empty_cache()
+    cog_grad_err = multilevel_gradient_check(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cog_grad, cog_grad_launches = cog_multilevel_gradient(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained_cog, train_cog_launches = train_cog(torch, dev)
 
     warm, cog, w14 = results[1], cog_results[1], w14_results[0]
     print("summary " + json.dumps(dict(
@@ -1317,16 +1806,28 @@ def main():
         wan14b_denoise_peak_gib=w14["denoise_peak_gib"],
         wan14b_decode_peak_gib=w14["decode_peak_gib"], wan14b_params_b=w14_params / 1e9,
         wan14b_attention_lane_ms=lane_ms, wan14b_attention_dense_ms=dense_attn_ms,
-        wan14b_reference_max_abs_err=w14_ref_err,
+        wan14b_reference_max_abs_err=w14_ref_err, wan14b_gradient_max_abs_err=w14_grad_err,
         maxpred_step_ms=max_results[1]["step_ms"], maxpred_clip_s=max_results[1]["clip_s"],
         maxpred_denoise_s=max_results[1]["denoise_s"],
         maxpred_decode_s=max_results[1]["decode_s"],
         maxpred_cold_clip_s=max_results[0]["clip_s"], maxpred_density=max_density,
         maxpred_reference_max_abs_err=max_ref_err, union_step_ms=union_results[0]["step_ms"],
-        union_clip_s=union_results[0]["clip_s"], stock_density=stock_density)))
+        union_clip_s=union_results[0]["clip_s"], stock_density=stock_density,
+        cog_energy_density=cog_energy_density,
+        cog_lane_fwd_ms=lanes["cog_fused"]["fwd_ms"],
+        cog_lane_bwd_ms=lanes["cog_fused"]["bwd_ms"],
+        wan14b_lane_fwd_ms=lanes["wan14b_per_level"]["fwd_ms"],
+        wan14b_lane_bwd_ms=lanes["wan14b_per_level"]["bwd_ms"],
+        cog_gradient_max_abs_err=cog_grad_err,
+        cog_multilevel_grad_s=cog_grad["grad_s"],
+        cog_multilevel_grad_peak_mem_gib=cog_grad["peak_mem_gib"],
+        train_cog_s_per_step=trained_cog["s_per_step_warm"],
+        train_cog_peak_mem_gib=trained_cog["peak_mem_gib"],
+        wall_s=time.perf_counter() - t_start)))
     paths = {"serve_wan": serve_launches, "train_wan": train_launches,
              "serve_cog": cog_launches, "serve_wan14b": w14_launches,
-             "serve_wan_maxpred": max_launches, "serve_wan_union": union_launches}
+             "serve_wan_maxpred": max_launches, "serve_wan_union": union_launches,
+             "grad_cog_multilevel": cog_grad_launches, "train_cog": train_cog_launches}
     kernels = []
     for name, k in _build.KERNELS.items():
         main_check = next(c for c in checks[name] if c["main"])

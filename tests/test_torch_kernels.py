@@ -180,10 +180,12 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
     sum(o.sum() for o in outs).backward()  # the backward too
     pack_kv(k[0].detach(), v[0].detach())
     pack_kv_pyramid(k[0].detach(), v[0].detach())
+    outs = (multilevel_attention(q, k, v, lists=multilevel_lists(torch.rand(1, 1, 1, 1),
+                                                                 cap=128))
+            + multilevel_attention(q, k, v, torch.full((1, 1, 1, 1), 2, dtype=torch.int32),
+                                   fused=False))  # both lanes, and their backward
+    sum(o.sum() for o in outs).backward()
     with torch.no_grad():
-        multilevel_attention(q, k, v, lists=multilevel_lists(torch.rand(1, 1, 1, 1), cap=128))
-        multilevel_attention(q, k, v, torch.full((1, 1, 1, 1), 2, dtype=torch.int32),
-                             fused=False)  # the per-level lane
         pooled_scores(q[..., :32, :].detach(), k[..., :32, :].detach(), 16)
         heads_unpack(heads_pack(q[0].detach(), 1))
     old, tbsa.SPARSE_UNION = tbsa.SPARSE_UNION, True
@@ -196,7 +198,7 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
                                    "dense_dq", "dense_dkv", "sparse_dq", "sparse_dkv",
                                    "pack_kv_pyramid", "multilevel_fwd", "pooled_level_fwd",
                                    "pooled_predictor", "sparse_union_fwd", "heads_pack",
-                                   "heads_unpack"}
+                                   "heads_unpack", "pooled_level_dq", "pooled_level_dkv"}
     assert all(kern.launches == 0 for kern in _build.KERNELS.values())
 
 

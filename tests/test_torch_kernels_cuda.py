@@ -8,7 +8,8 @@ Tolerances: attention outputs 2e-2 absolute (bf16 output rounding and the
 kernel's bf16 P @ V at |out| <~ 4), lse 5e-3 (f32 sums in another order),
 norm_rope 2e-2 (bf16 output rounding), both pack modes bit for bit (the
 pyramid pools in f32 in the same order as its plain version).  The backward
-kernels are held to 2e-2 * max |ref| per gradient against the plain
+kernels (the 128-row ones and the pooled-level ones of the multilevel
+backward) are held to 2e-2 * max |ref| per gradient against the plain
 backward: p and ds are rounded to bf16 before each product (relative
 2^-9 a term) and the gradients to bf16 on output.
 """
@@ -26,7 +27,11 @@ from blade_torch.kernels.block_sparse_attn import (
     flash_attention_wide_v,
 )
 from blade_torch.attention.masks import multilevel_lists, multilevel_mask
-from blade_torch.kernels.multilevel_attn import multilevel_attention, pooled_level_attention
+from blade_torch.kernels.multilevel_attn import (
+    multilevel_attention,
+    pooled_level_attention,
+    pooled_level_backward,
+)
 from blade_torch.kernels.norm_rope import _norm_rope_reference, norm_rope_heads
 from blade_torch.kernels.pack import (
     _pack_kv_pyramid_reference,
@@ -41,6 +46,7 @@ from blade_torch.kernels.ref_attention import (
     dense_attention_with_lse,
     multilevel_lists_attention,
     pooled_level_attention_reference,
+    pooled_level_backward_reference,
 )
 
 pytestmark = pytest.mark.cuda
@@ -218,14 +224,92 @@ def test_per_level_lane_matches_plain(dev):
     assert out[0, 1, 384:512].abs().max().item() == 0.0
 
 
-def test_multilevel_is_forward_only(dev):
-    q = torch.randn(1, 1, 256, 64, device=dev, dtype=torch.bfloat16, requires_grad=True)
-    lists = multilevel_lists(torch.rand(1, 1, 2, 2, device=dev), cap=128)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        multilevel_attention(q, q, q, lists=lists)
-    with torch.no_grad():
-        out, _ = multilevel_attention(q, q, q, lists=lists)
-    assert torch.isfinite(out.float()).all()
+@pytest.mark.parametrize("level,lq,lk,d", [
+    (2, 300, 1100, 128),
+    (4, 1000, 1101, 64),   # pooled tail row mixing real and edge-repeated keys
+    (8, 260, 900, 128),
+    (8, 640, 4000, 64),
+    (4, 520, 640, 128),
+    (2, 390, 777, 64),
+])
+def test_pooled_level_backward_kernels_match_plain(dev, level, lq, lk, d):
+    """Both pooled backward kernels against the plain pooled backward on the
+    same bf16 records, with a non-zero LSE cotangent, one empty row, one row
+    selecting every block and one block no query tile selects (its pooled
+    dK/dV exactly 0); p is recomputed from a level-own lse."""
+    gen = torch.Generator(device=dev).manual_seed(level * 999 + lq + lk + d)
+    bh = 3
+    q = _rand(gen, bh, lq, d, dev=dev)
+    k, v = _rand(gen, bh, lk, d, dev=dev), _rand(gen, bh, lk, d, dev=dev)
+    rec = pack_kv_pyramid(k, v)[{2: 1, 4: 2, 8: 3}[level]]
+    n_qt, n_kt = -(-lq // 128), -(-lk // 128)
+    mask = torch.rand((bh, n_qt, n_kt), generator=gen, device=dev) < 0.4
+    mask[1, 1] = False  # an empty row
+    mask[2, 0] = True  # every block
+    mask[0, :, 1] = False  # a block no query tile selects
+    seg, pvl = 128 // level, -(-lk // level)
+    kw = dict(level=level, scale=d ** -0.5, pooled_valid_len=pvl)
+    out, lse = pooled_level_attention(q, rec, mask, **kw)
+    g_out = _rand(gen, bh, lq, d, dev=dev)
+    g_lse = torch.randn((bh, lq), generator=gen, device=dev)
+    names = ("pooled_level_dq", "pooled_level_dkv")
+    before = [_build.KERNELS[n].launches for n in names]
+    dq, dk, dv = pooled_level_backward(q, rec, out, lse, g_out, g_lse, mask, **kw)
+    torch.cuda.synchronize()
+    assert [_build.KERNELS[n].launches for n in names] == [b + 1 for b in before]
+    r = rec.view(bh, n_kt, 2, seg, d)
+    want = pooled_level_backward_reference(
+        q, r[:, :, 0].reshape(bh, -1, d), r[:, :, 1].reshape(bh, -1, d), out, lse, g_out,
+        g_lse, mask, **kw)
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.shape == ref.shape and got.dtype == torch.bfloat16
+        assert torch.isfinite(got.float()).all()
+        assert _err(got, ref) <= BWD_REL * ref.float().abs().max().item()
+    assert dq[1, 128:256].float().abs().max().item() == 0.0
+    for g in (dk, dv):
+        assert g[0, seg:2 * seg].float().abs().max().item() == 0.0
+        assert g[:, pvl:].float().abs().sum().item() == 0.0  # dead pooled rows, if any
+
+
+@pytest.mark.parametrize("lane,q_rows,l,d", [
+    ("fused", 128, 1100, 128),
+    ("fused", 256, 901, 64),
+    ("per-level", 128, 1101, 128),
+])
+def test_multilevel_backward_matches_plain(dev, lane, q_rows, l, d):
+    """dQ, dK, dV of ``multilevel_attention`` on the card against the same
+    Functions' plain per-pass backward on the CPU (f32, the same bf16
+    inputs), with exact backward launch counts."""
+    gen = torch.Generator(device=dev).manual_seed(l + q_rows + d)
+    q, k, v = (_rand(gen, 1, 2, l, d, dev=dev) for _ in range(3))
+    n_kt = -(-l // 128)
+    scores = torch.rand((1, 2, -(-l // q_rows), n_kt), generator=gen, device=dev)
+    if lane == "fused":
+        masks = {"lists": multilevel_lists(scores, ML_RATIOS, cap=128), "q_rows": q_rows}
+    else:
+        masks = {"levels": multilevel_mask(scores, ML_RATIOS), "fused": False}
+    g_out = _rand(gen, 1, 2, l, d, dev=dev)
+    g_lse = torch.randn((1, 2, l), generator=gen, device=dev)
+
+    def grads(device, dtype):
+        leaves = [t.to(device, dtype).requires_grad_(True) for t in (q, k, v)]
+        kw = {n: (tuple(t.to(device) for t in m) if isinstance(m, tuple) else
+                  m.to(device) if torch.is_tensor(m) else m) for n, m in masks.items()}
+        out, lse = multilevel_attention(*leaves, **kw)
+        return torch.autograd.grad((out, lse), leaves, (g_out.to(device, dtype),
+                                                        g_lse.to(device)))
+
+    names = ("pack_kv", "sparse_dq", "sparse_dkv", "pooled_level_dq", "pooled_level_dkv")
+    before = [_build.KERNELS[n].launches for n in names]
+    got = grads(dev, torch.bfloat16)
+    torch.cuda.synchronize()
+    bwd_pack = 1 if lane == "fused" else 2  # the per-level forward's level 1 packs too
+    assert [_build.KERNELS[n].launches - b for n, b in zip(names, before)] == \
+        [bwd_pack, 1, 1, 3, 3]
+    want = grads(torch.device("cpu"), torch.float32)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g.float()).all()
+        assert _err(g.cpu(), w) <= BWD_REL * w.abs().max().item()
 
 
 @pytest.mark.parametrize("s,dim,heads", [(504, 1536, 12), (100, 256, 2), (64, 128, 2)])

@@ -140,13 +140,17 @@ def test_fused_supported_matches_jax_and_unsupported_raises():
                                  q_rows=256)
     with pytest.raises(ValueError, match="require the fused lane"):
         tml.multilevel_attention(q, q, q, lists=(None, None), fused=False)
-    qg = torch.zeros(1, 1, 256, 64, requires_grad=True)
+    # the lane is differentiable (the gradients: test_torch_multilevel_grad.py)
+    qg = torch.randn(1, 1, 256, 64, requires_grad=True)
     lists = TM.multilevel_lists(torch.rand(1, 1, 2, 2), cap=128)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        tml.multilevel_attention(qg, qg, qg, lists=lists)
+    out_g, lse_g = tml.multilevel_attention(qg, qg, qg, lists=lists)
+    assert out_g.requires_grad and lse_g.requires_grad
+    (grad,) = torch.autograd.grad(out_g.sum() + lse_g.sum(), qg)
+    assert torch.isfinite(grad).all() and grad.abs().max() > 0
     with torch.no_grad():
         out, lse = tml.multilevel_attention(qg, qg, qg, lists=lists)
     assert out.shape == (1, 1, 256, 64) and lse.shape == (1, 1, 256)
+    assert torch.equal(out, out_g) and torch.equal(lse, lse_g)
 
 
 def test_empty_row_and_forced_rows():

@@ -266,10 +266,36 @@ def test_cli_tiny_writes_metrics_and_adapter(tmp_path):
     assert _same(state2.lora_g, state.lora_g)
 
 
+def test_cli_trains_the_tiny_cogvideox(tmp_path):
+    """``python -m blade_torch.cli.train --family cogvideox --tiny``: the DDPM
+    family, latents ``[B, T, C, H, W]``, ASA on the energy lane, LoRA on
+    ``attn1`` only, the weighting factor on and no fake-loss guard."""
+    out = tmp_path / "cog"
+    proc = subprocess.run(
+        [sys.executable, "-m", "blade_torch.cli.train", "--family", "cogvideox", "--tiny",
+         "--random-init", "--device", "cpu", "--max_train_steps", "2", "--batch_size", "1",
+         "--k_step", "2", "--output_dir", str(out)],
+        capture_output=True, text=True, timeout=300, cwd=Path(__file__).resolve().parents[1])
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "latents [1, 3, 16, 16, 16], ASA" in proc.stdout
+    recs = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in recs] == [0, 1]
+    assert all(np.isfinite(r["loss_fake"]) and np.isfinite(r["loss_du"]) for r in recs)
+    assert not any(r["fake_skipped"] for r in recs)
+    lora = np.load(out / "tdm_lora.npz")
+    assert "transformer_blocks.1.attn1.to_out.0.lora_B.weight" in lora.files
+    assert not any("attn2" in k for k in lora.files)
+    args = cli_train.get_args(["--family", "cogvideox", "--output_dir", "x"])
+    cfg = cli_train.tdm_config(args)
+    assert cfg.use_weighting_factor and cfg.fake_loss_skip_threshold is None
+    preset = cli_train.build_preset(args)
+    assert cli_train.latent_shape(preset, 1) == (1, 13, 16, 60, 90)
+    assert (preset.text_dim, preset.max_text_len) == (4096, 226)
+
+
 @pytest.mark.parametrize("flag", [["--prompt_embeds", "x"], ["--report_to", "tensorboard"],
                                   ["--sample_at_checkpoint"], ["--dp", "2"],
-                                  ["--family", "cogvideox"], ["--optimizer", "prodigy"],
-                                  ["--use_8bit_adam"]])
+                                  ["--optimizer", "prodigy"], ["--use_8bit_adam"]])
 def test_cli_refuses_flags_of_later_slices(tmp_path, flag):
     with pytest.raises(SystemExit, match="not ported yet"):
         cli_train.main(["--tiny", "--random-init", "--device", "cpu",
