@@ -52,7 +52,6 @@ __all__ = ["ASAConfig", "predict_block_scores", "compute_mask", "compute_lists",
            "adaptive_sparse_attention", "asa_attention", "BLOCK"]
 
 BLOCK = 128  # token block of the masks: the sparse kernel's 128 x 128 tiles
-ENERGY_THRESHOLD = 0.95
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,9 +66,17 @@ class ASAConfig:
     # Text tokens behind the video in the attention sequence (CogVideoX's
     # joint attention); 0 for Wan.
     text_length: int = 0
+    # Gilbert-rearrange tokens around the attention (off: masks are taken
+    # in the given token order).
+    use_rearrange: bool = True
+    # Token block of the masks; the port's kernels and masks are built on
+    # 128-token blocks (BLOCK), so no other value is taken.
+    block_size: int = BLOCK
     sample_tokens_per_block: int = 16
     min_retain_ratio: float = 0.05
     max_retain_ratio: float = 0.1
+    # Share of each row's predicted mass the energy mask keeps.
+    energy_threshold: float = 0.95
     sample_gap: int = 15
     mask_mode: str = "energy"  # "energy" | "multilevel"
     mask_ratios: Optional[Dict[int, Tuple[float, float]]] = None
@@ -81,6 +88,11 @@ class ASAConfig:
     # "sum": each key block's softmax mass (matmul-reducible, rows sum to 1
     # by construction); "max": the reference's renormalised max pooling.
     predictor: str = "sum"
+
+    def __post_init__(self):
+        if self.block_size != BLOCK:
+            raise ValueError(f"ASAConfig.block_size={self.block_size}: the port's masks and "
+                             f"kernels are built on {BLOCK}-token blocks only")
 
     @property
     def video_tokens(self) -> int:
@@ -183,7 +195,7 @@ def compute_mask(q, k, cfg: ASAConfig, *, generator=None, offsets=None):
         scores,
         min_retain_ratio=cfg.min_retain_ratio,
         max_retain_ratio=cfg.max_retain_ratio,
-        energy_threshold=ENERGY_THRESHOLD,
+        energy_threshold=cfg.energy_threshold,
     )
 
 
@@ -273,7 +285,7 @@ def asa_attention(
     counts)`` lists tuple, on the per-level lane the int level mask).
     Returns ``(out, sparsity[, mask])``.
     """
-    rearrange = not cfg.pre_arranged
+    rearrange = cfg.use_rearrange and not cfg.pre_arranged
     if rearrange:
         perm, inv = cfg.permutations()
         q = gilbert.rearrange_tokens(q, perm, cfg.text_length)

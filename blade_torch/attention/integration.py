@@ -41,7 +41,10 @@ def layer_mask(masks, i: int):
 def asa_model_kwargs(asa_cfg: ASAConfig) -> dict:
     """Model kwargs wiring ASA with the gilbert permutation hoisted to the
     model: tokens are permuted once per forward (``WanModel.token_perm``)
-    and every attention call runs ``pre_arranged``."""
+    and every attention call runs ``pre_arranged``.  Without
+    ``use_rearrange`` nothing is permuted and no ``token_perm`` is set."""
+    if not asa_cfg.use_rearrange:
+        return {"attention_fn": make_asa_attention_fn(asa_cfg)}
     cfg = dataclasses.replace(asa_cfg, pre_arranged=True)
     return {"attention_fn": make_asa_attention_fn(cfg), "token_perm": asa_cfg.permutations()}
 

@@ -6,6 +6,15 @@
 // head holds the 128 K rows of key block b followed by its 128 V rows, so
 // bt_attn_sparse_fwd reads one contiguous 2*128*d record per listed block.
 // Rows past the key length lk (the ragged last block) are written as zeros.
+// What bounds it on the H100: device-memory bandwidth only, a pure copy
+// (read 2 * lk * d, write 2 * n_kt * 128 * d bf16 a head).  One CTA copies
+// one record half, a 128 x d slab that is contiguous on both sides (the
+// ragged tail excepted): blockIdx.x over the 2 * n_kt halves, blockIdx.y
+// over heads (looping past the grid's 65535).  Each thread issues all its
+// 16-byte loads before its first store, so d / 8 independent loads are in
+// flight a thread, consecutive threads on consecutive addresses; the index
+// arithmetic is shifts of a compile-time row width, no division.  Loads and
+// stores are marked evict-first (each byte is touched once).
 //
 // pyramid=True (bt_pack_kv_pyramid): the level-1 records of the EDGE-padded
 // K/V (rows past lk repeat row lk-1, as JAX pools pad_to_block_multiple's
@@ -14,31 +23,41 @@
 // 8-channel slice of K or V: it reads them once, writes the 8 level-1 rows,
 // and pools pairwise in f32, chained (pool4 = pool2(pool2), pool8 =
 // pool2(pool4)), rounding to bf16 once a level -- one pass, read 2*L*d,
-// write 3.75*L*d.
-//
-// What bounds it on the H100: memory bandwidth only (no arithmetic).  Each
-// thread moves 16 bytes with consecutive threads on consecutive addresses on
-// both the read and the write side; a grid-stride loop keeps the grid at a
-// few waves of the 132 SMs.
+// write 3.75*L*d.  Bandwidth-bound as well; each thread moves 16 bytes with
+// consecutive threads on consecutive addresses, in a grid-stride loop.
 #include "common.cuh"
 
 namespace bt {
 
-__global__ void pack_kv_kernel(const uint4* __restrict__ k, const uint4* __restrict__ v,
-                               uint4* __restrict__ out, int lk, int n_kt, int dvec,
-                               long long total) {
-  const long long rec_rows = (long long)n_kt * 256;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    const int c = (int)(i % dvec);
-    const long long r_all = i / dvec;
-    const int r = (int)(r_all % rec_rows);
-    const long long bh = r_all / rec_rows;
-    const int w = r & 255;
-    const int src = (r >> 8) * 128 + (w & 127);
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (src < lk) val = (w < 128 ? k : v)[(bh * lk + src) * dvec + c];
-    out[i] = val;
+constexpr int PACK_THREADS = 128;
+
+// One record half: 128 rows x VPR 16-byte vectors, VPR vectors a thread.
+// VPR == 0: any row width `dvec`, one vector at a time (32-bit indices).
+template <int VPR>
+__global__ void __launch_bounds__(PACK_THREADS)
+pack_kv_kernel(const uint4* __restrict__ k, const uint4* __restrict__ v,
+               uint4* __restrict__ out, int bh, int lk, int n_kt, int dvec) {
+  const int w = VPR > 0 ? VPR : dvec;  // 16-byte vectors a row
+  const int half = blockIdx.x, row0 = (half >> 1) * 128;
+  const uint4* side = (half & 1) ? v : k;
+  // Vectors of this half that hold source rows (< lk); the rest are zeros.
+  const int live = max(0, min(128, lk - row0)) * w;
+  for (int b = blockIdx.y; b < bh; b += gridDim.y) {
+    const uint4* src = side + ((size_t)b * lk + row0) * w;
+    uint4* dst = out + ((size_t)b * n_kt * 2 + half) * 128 * w;
+    if constexpr (VPR > 0) {
+      uint4 val[VPR];
+#pragma unroll
+      for (int i = 0; i < VPR; ++i) {
+        const int e = threadIdx.x + i * PACK_THREADS;
+        val[i] = e < live ? __ldcs(src + e) : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int i = 0; i < VPR; ++i) __stcs(dst + threadIdx.x + i * PACK_THREADS, val[i]);
+    } else {
+      for (int e = threadIdx.x; e < 128 * w; e += PACK_THREADS)
+        __stcs(dst + e, e < live ? __ldcs(src + e) : make_uint4(0u, 0u, 0u, 0u));
+    }
   }
 }
 
@@ -132,12 +151,16 @@ BT_API int bt_pack_kv(const void* k, const void* v, void* out, int bh, int lk, i
   if (d % 8 || bh <= 0 || lk <= 0) return (int)cudaErrorInvalidValue;
   const int n_kt = (lk + 127) / 128;
   const int dvec = d / 8;
-  const long long total = (long long)bh * n_kt * 256 * dvec;
-  const int threads = 256;
-  long long blocks = (total + threads - 1) / threads;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  bt::pack_kv_kernel<<<(unsigned)blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(k), static_cast<const uint4*>(v), static_cast<uint4*>(out),
-      lk, n_kt, dvec, total);
+  const dim3 grid(2 * n_kt, bh < 65535 ? bh : 65535);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint4* ku = static_cast<const uint4*>(k);
+  const uint4* vu = static_cast<const uint4*>(v);
+  uint4* o = static_cast<uint4*>(out);
+  if (dvec == 16)
+    bt::pack_kv_kernel<16><<<grid, bt::PACK_THREADS, 0, st>>>(ku, vu, o, bh, lk, n_kt, dvec);
+  else if (dvec == 8)
+    bt::pack_kv_kernel<8><<<grid, bt::PACK_THREADS, 0, st>>>(ku, vu, o, bh, lk, n_kt, dvec);
+  else
+    bt::pack_kv_kernel<0><<<grid, bt::PACK_THREADS, 0, st>>>(ku, vu, o, bh, lk, n_kt, dvec);
   return (int)cudaGetLastError();
 }

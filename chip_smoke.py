@@ -13,7 +13,9 @@ no result):
    main-path shapes of Wan2.1-1.3B 480p (B=1, H=12, d=128, L=32760), with
    max |err| against a stated tolerance, both times from CUDA events, the
    least time the card could take (``bound_ms``) and, where one PyTorch call
-   computes the same function, that call's time (``library_ms``);
+   computes the same function, that call's time (``library_ms``; the
+   attention and ``pack_kv`` kernels and their library calls are timed in
+   turns, A B B A);
 4. the main path: the full-width Wan2.1-T2V-1.3B ``wan-1.3b-480p`` preset on
    random weights from a seeded generator serves two requests through
    ``build_pipeline`` and ``T2VPipeline.generate`` (8 UniPC steps, flow shift
@@ -50,10 +52,13 @@ no result):
 11. a small-input reference check of the CogVideoX model: kernels (bf16,
    card) against plain versions (f32, CPU) with shared weights and the
    card's lists replayed;
-12. the pooled-level kernel against its plain version at Wan2.1-14B 720p
-   shapes (B=1, H=40, d=128, L=75600, a level mask from the real predictor),
-   once for each of levels 2, 4 and 8; then the whole per-level multilevel
-   lane and dense flash attention at that shape, timed;
+12. the dense kernel as the Wan2.1-14B 720p predictor (q,k [1,40,9456,128],
+   V width 640; the plain version on 4 heads) and ``pack_kv`` at 14B K/V
+   shapes (against ``torch.stack``); the pooled-level kernel against its
+   plain version at Wan2.1-14B 720p shapes (B=1, H=40, d=128, L=75600, a
+   level mask from the real predictor), once for each of levels 2, 4 and 8;
+   then the whole per-level multilevel lane and dense flash attention at
+   that shape, timed;
 13. the Wan2.1-14B serving path: the full-width, full-depth
    ``wan-14b-720p`` preset with ``--mask_mode multilevel`` (40 blocks, dim
    5120, 40 heads of 128, 591 key blocks: the per-level lane) on random
@@ -90,7 +95,8 @@ no result):
    K/V in place);
 18. the d = 64 forms of the energy lane's kernels at CogVideoX-5B 480p
    training shapes (H=48, L=17776 with the 226 text tokens, an energy mask
-   from the real predictor): the sparse forward, ``pack_kv``, the sparse
+   from the real predictor): the dense forward on the pooled branch (1186
+   pooled keys, +log 15 bias), the sparse forward, ``pack_kv``, the sparse
    backward and the dense backward on the pooled branch;
 19. the pooled backward kernels (the multilevel backward) against their
    plain version at CogVideoX-5B 480p fused-lane shapes (p from the merged
@@ -156,6 +162,17 @@ def _cuda_ms(torch, fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _cuda_ms_turns(torch, fns, reps):
+    """Mean ms of each of ``fns`` over two turns, in order and then reversed
+    (A B B A), so that no side always runs first after a heavy phase: the
+    way a kernel is compared with its library call."""
+    totals = [0.0] * len(fns)
+    order = list(range(len(fns)))
+    for i in order + order[::-1]:
+        totals[i] += _cuda_ms(torch, fns[i], reps)
+    return [t / 2 for t in totals]
 
 
 def _max_err(got, want):
@@ -248,17 +265,22 @@ COG_HEADS, COG_HEAD_DIM, COG_TOKENS, COG_SAMPLE = 48, 64, 17776, 16
 
 
 def _attn_check(torch, record, kernel, shape, fn, plain, reps, plain_reps=1, main=False,
-                flops=0.0, nbytes=0, library=None):
+                flops=0.0, nbytes=0, library=None, heads=None):
     """One attention kernel check: ``fn`` and ``plain`` return ``(out, lse)``;
-    ``nbytes`` counts the inputs (the outputs are added here)."""
+    ``nbytes`` counts the inputs (the outputs are added here).  With
+    ``heads``, ``plain`` covers only the first ``heads`` heads (dim 1) and
+    is held against those of the kernel's output."""
     out, lse = fn()
     ref_out, ref_lse = plain()
-    err_out, err_lse = _max_err(out, ref_out), _max_err(lse, ref_lse)
+    hs = slice(0, heads)
+    err_out, err_lse = _max_err(out[:, hs], ref_out), _max_err(lse[:, hs], ref_lse)
     ref_max = ref_out.float().abs().max().item()
     ok = err_out <= OUT_REL * ref_max and err_lse <= LSE_ATOL
-    lib_ms = None if library is None else _cuda_ms(torch, library, reps)
-    record(kernel, shape, ok, max(err_out, err_lse), _cuda_ms(torch, fn, reps),
-           _cuda_ms(torch, plain, plain_reps),
+    if library is None:
+        ms, lib_ms = _cuda_ms(torch, fn, reps), None
+    else:
+        ms, lib_ms = _cuda_ms_turns(torch, [fn, library], reps)
+    record(kernel, shape, ok, max(err_out, err_lse), ms, _cuda_ms(torch, plain, plain_reps),
            f"out {err_out:.3e} <= 2e-2*max|ref| ({ref_max:.4e}), lse {err_lse:.3e} <= 5e-3",
            main, flops, nbytes + _nbytes(out, lse), lib_ms)
 
@@ -338,10 +360,11 @@ def check_kernels(torch, dev, checks):
     kf, vf = randn(h, 32768, d), randn(h, 32768, d)
     got, want = pack_kv(kf, vf), _pack_kv_reference(kf, vf)
     stack = lambda: torch.stack([kf.view(h, 256, 128, d), vf.view(h, 256, 128, d)], dim=2)
+    pack_ms, stack_ms = _cuda_ms_turns(torch, [lambda: pack_kv(kf, vf), stack], 50)
     record("pack_kv", "k,v [12,32768,128] -> [12,65536,128]", torch.equal(got, want),
-           _max_err(got, want), _cuda_ms(torch, lambda: pack_kv(kf, vf), 50),
+           _max_err(got, want), pack_ms,
            _cuda_ms(torch, lambda: _pack_kv_reference(kf, vf), 50), "bit exact", True,
-           0.0, _nbytes(kf, vf, got), _cuda_ms(torch, stack, 50))
+           0.0, _nbytes(kf, vf, got), stack_ms)
 
     # -- norm_rope (#4) -------------------------------------------------------
     x = randn(1, L, 1536)
@@ -874,6 +897,52 @@ def cog_reference_check(torch, dev):
     return err
 
 
+def check_wan14b_predictor(torch, dev, checks):
+    """Phase 12, first checks: the dense kernel as the Wan2.1-14B 720p "sum"
+    predictor (16 sampled tokens of each of 591 key blocks, V the one-hot
+    block pooling lane-padded to 640 columns: three Q K^T passes), timed on
+    all 40 heads, its plain version on the first 4, the library call one
+    SDPA on the same inputs; then ``pack_kv`` at the 14B K/V width (591
+    whole blocks, as phase 3 takes 256, so that ``torch.stack`` of the
+    blocks is the library call)."""
+    from blade_torch import config as C
+    from blade_torch.kernels.block_sparse_attn import flash_attention_wide_v
+    from blade_torch.kernels.pack import _pack_kv_reference, pack_kv
+    from blade_torch.kernels.ref_attention import dense_attention_with_lse
+    from blade_torch.utils.rng import make_generator
+
+    gen = make_generator(2032, dev)
+    record = _recorder(checks)
+    cfg, dit = C.derive_asa_config(C.WAN_14B_720P, "multilevel"), C.WAN_14B_720P.dit
+    h, d, tokens = dit.num_heads, dit.head_dim, cfg.sample_tokens_per_block
+    n_k = -(-cfg.seq_len // 128)
+    ls, width = n_k * tokens, -(-n_k // 128) * 128
+    assert (h, d, ls, width) == (40, 128, 9456, 640)
+    qs, ks = (torch.randn((1, h, ls, d), generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    pool = torch.nn.functional.one_hot(torch.arange(ls, device=dev) // tokens, width)
+    pool = pool.to(torch.bfloat16).expand(1, h, ls, width).contiguous()
+    sub = 4
+    _attn_check(torch, record, "dense_fwd",
+                f"14b predictor q,k [1,{h},{ls},{d}] v [1,{h},{ls},{width}] (plain: {sub} heads)",
+                lambda: flash_attention_wide_v(qs, ks, pool),
+                lambda: dense_attention_with_lse(qs[:, :sub], ks[:, :sub], pool[:, :sub]), 5, 1,
+                False, *_dense_work(qs, ks, pool),
+                library=lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, pool),
+                heads=sub)
+    del qs, ks, pool
+    kf, vf = (torch.randn((h, n_k * 128, d), generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    got, want = pack_kv(kf, vf), _pack_kv_reference(kf, vf)
+    blocks = (h, n_k, 128, d)
+    stack = lambda: torch.stack([kf.view(blocks), vf.view(blocks)], dim=2)
+    pack_ms, stack_ms = _cuda_ms_turns(torch, [lambda: pack_kv(kf, vf), stack], 20)
+    record("pack_kv", f"14b k,v [{h},{n_k * 128},{d}] -> [{h},{2 * n_k * 128},{d}]",
+           torch.equal(got, want), _max_err(got, want), pack_ms,
+           _cuda_ms(torch, lambda: _pack_kv_reference(kf, vf), 5), "bit exact", False, 0.0,
+           _nbytes(kf, vf, got), stack_ms)
+
+
 def check_wan14b_pooled(torch, dev, checks):
     """Phase 12: the pooled-level kernel against its plain version at the
     Wan2.1-14B 720p shapes, one check a level (2 and 4 at the HBM-gather TPU
@@ -890,6 +959,7 @@ def check_wan14b_pooled(torch, dev, checks):
     from blade_torch.kernels.ref_attention import pooled_level_attention_reference
     from blade_torch.utils.rng import make_generator
 
+    check_wan14b_predictor(torch, dev, checks)
     gen = make_generator(2026, dev)
     record = _recorder(checks)
     cfg, dit = C.derive_asa_config(C.WAN_14B_720P, "multilevel"), C.WAN_14B_720P.dit
@@ -1297,6 +1367,34 @@ def serve_union(torch, dev, stock):
     return results, launches, density
 
 
+def check_cog_pooled_fwd(torch, dev, checks):
+    """Phase 18, first check: the dense kernel as the energy lane's pooled
+    branch at CogVideoX-5B 480p training shapes (d = 64: q [1,48,17776,64]
+    against K/V mean-pooled by the preset's gap, +log gap bias); the library
+    call is one SDPA on the same inputs."""
+    from blade_torch import config as C
+    from blade_torch.attention.masks import pad_to_block_multiple
+    from blade_torch.kernels.block_sparse_attn import flash_attention
+    from blade_torch.kernels.ref_attention import dense_attention_with_lse
+    from blade_torch.utils.rng import make_generator
+
+    gen = make_generator(2033, dev)
+    record = _recorder(checks)
+    cfg = C.derive_asa_config(C.COGVIDEOX_480P, "energy")
+    h, d, length, gap = COG_HEADS, COG_HEAD_DIM, cfg.seq_len, cfg.sample_gap
+    q, k, v = (torch.randn((1, h, length, d), generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    kp, vp = (pad_to_block_multiple(t, gap).float().reshape(1, h, -1, gap, d).mean(3)
+              .to(torch.bfloat16) for t in (k, v))
+    bias = math.log(gap)
+    _attn_check(torch, record, "dense_fwd",
+                f"cog pooled q [1,{h},{length},{d}] k,v [1,{h},{kp.shape[2]},{d}]",
+                lambda: flash_attention(q, kp, vp, bias=bias),
+                lambda: dense_attention_with_lse(q, kp, vp, bias=bias), 20, 3, False,
+                *_dense_work(q, kp, vp),
+                library=lambda: torch.nn.functional.scaled_dot_product_attention(q, kp, vp))
+
+
 def check_cog_energy(torch, dev, checks):
     """Phase 18: the d = 64 forms of the energy lane's kernels at the
     CogVideoX-5B 480p training shapes (B=1, H=48, d=64, L=17776 with the 226
@@ -1312,6 +1410,7 @@ def check_cog_energy(torch, dev, checks):
     from blade_torch.kernels.ref_attention import block_masked_attention
     from blade_torch.utils.rng import make_generator
 
+    check_cog_pooled_fwd(torch, dev, checks)
     gen = make_generator(2031, dev)
     record = _recorder(checks)
     cfg = C.derive_asa_config(C.COGVIDEOX_480P, "energy")

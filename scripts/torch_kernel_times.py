@@ -3,9 +3,14 @@
 forward-kernel checks alone (phases 3, 9 and 15: each kernel against its
 plain version at the main-path shapes of Wan2.1-1.3B 480p and CogVideoX-5B
 480p, and the "max" predictor, union-gathered sparse and head-relayout
-kernels).
+kernels; the dense kernel as the Wan2.1-14B predictor of phase 12 and as the
+CogVideoX pooled branch of phase 18).
 
-    python3 scripts/torch_kernel_times.py
+    python3 scripts/torch_kernel_times.py [PHASE ...]
+
+``PHASE`` names ``chip_smoke`` check functions (default: all of the above),
+e.g. ``check_kernels check_dense_d64`` for the Wan and CogVideoX dense and
+pack checks alone.
 
 Imports ``blade_torch`` from ``PYTHONPATH`` first, so pointing
 ``PYTHONPATH`` at another checkout times that checkout's kernels with this
@@ -36,8 +41,11 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev, checks = torch.device("cuda"), {}
-    for phase in (smoke.check_kernels, smoke.check_dense_d64, smoke.check_cog_multilevel,
-                  smoke.check_last_kernels):
+    names = sys.argv[1:] or ["check_kernels", "check_dense_d64", "check_wan14b_predictor",
+                             "check_cog_pooled_fwd", "check_cog_multilevel",
+                             "check_last_kernels"]
+    for name in names:
+        phase = getattr(smoke, name)
         try:
             phase(torch, dev, checks)
         except ImportError as e:
@@ -46,7 +54,8 @@ def main():
     for kernel, rows in checks.items():
         for c in rows:
             print(json.dumps({"kernel": kernel, "shape": c["shape"], "ms": c["ms"],
-                              "plain_ms": c["plain_ms"], "library_ms": c["library_ms"],
+                              "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                              "library_ms": c["library_ms"],
                               "max_abs_err": c["max_abs_err"], "package": package}))
     print(smoke._nvidia_smi(), flush=True)
 

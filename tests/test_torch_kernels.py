@@ -125,6 +125,16 @@ def test_flash_attention_wide_v_matches_jax():
     _close(tl, jl)
 
 
+def test_flash_attention_wide_v_640_matches_jax():
+    """The Wan2.1-14B predictor's V width (5 x 128 lanes), ragged lengths."""
+    q, k, v = _qkv(14, 1, 2, 200, 300, 128, dv=640)
+    jo, jl = jbsa.flash_attention_wide_v(q, k, v, interpret=True)
+    to, tl = flash_attention_wide_v(_t(q), _t(k), _t(v))
+    assert to.shape == (1, 2, 200, 640)
+    _close(to, jo)
+    _close(tl, jl)
+
+
 def test_block_sparse_ragged_with_empty_row_matches_jax():
     q, k, v = _qkv(8, 1, 2, 300, 330, 128)  # 3 q blocks, 3 ragged k blocks
     mask = np.random.default_rng(9).random((1, 2, 3, 3)) > 0.5

@@ -22,6 +22,7 @@ import torch
 
 from blade_torch.kernels import _build
 from blade_torch.kernels.block_sparse_attn import (
+    _dense_cuda,
     block_sparse_attention,
     flash_attention,
     flash_attention_wide_v,
@@ -71,24 +72,43 @@ def _err(a, b):
     return (a.float() - b.float()).abs().max().item()
 
 
-@pytest.mark.parametrize("lq,lk,d,dv,bias", [
-    (200, 300, 128, 128, math.log(30.0)),
-    (1000, 37, 128, 128, 0.0),
-    (256, 256, 128, 256, 0.0),
-    (130, 70, 64, 64, 0.5),
-    (128, 256, 64, 128, 0.0),
+@pytest.mark.parametrize("lq,lk,d,dv,bias,heads", [
+    (200, 300, 128, 128, math.log(30.0), 3),
+    (1000, 37, 128, 128, 0.0, 3),
+    (256, 256, 128, 256, 0.0, 3),
+    (130, 70, 64, 64, 0.5, 3),
+    (128, 256, 64, 128, 0.0, 3),
+    # the Wan2.1-14B predictor's V width: two 256-column chunks and a 128 tail
+    (300, 520, 128, 640, 0.0, 3),
+    # the CogVideoX predictor's V width at d = 64
+    (333, 290, 64, 256, 0.0, 3),
+    # rows and keys off every tile width; the pooled branch's key count and bias
+    (1000, 1092, 128, 128, math.log(30.0), 3),
+    # 3 x 200 CTAs: more than one wave on 132 SMs, at both head dims
+    (300, 256, 128, 128, 0.0, 200),
+    (300, 256, 64, 256, 0.0, 200),
+    # tails of 64 and 192 columns, and dv < d
+    (200, 300, 128, 320, 0.0, 3),
+    (150, 200, 64, 192, 0.2, 3),
+    (100, 129, 128, 64, 0.0, 3),
 ])
-def test_dense_kernel_matches_plain(dev, lq, lk, d, dv, bias):
-    gen = torch.Generator(device=dev).manual_seed(lq + lk + d + dv)
-    q, k = _rand(gen, 1, 3, lq, d, dev=dev), _rand(gen, 1, 3, lk, d, dev=dev)
-    v = _rand(gen, 1, 3, lk, dv, dev=dev)
-    fn = flash_attention if dv == d else flash_attention_wide_v
+def test_dense_kernel_matches_plain(dev, lq, lk, d, dv, bias, heads):
+    gen = torch.Generator(device=dev).manual_seed(lq + lk + d + dv + heads)
+    q, k = _rand(gen, 1, heads, lq, d, dev=dev), _rand(gen, 1, heads, lk, d, dev=dev)
+    v = _rand(gen, 1, heads, lk, dv, dev=dev)
+    if dv == d:
+        fn = flash_attention
+    elif dv % 128 == 0:
+        fn = flash_attention_wide_v
+    else:  # the kernel's own entry: JAX's wide-V path takes multiples of 128 only
+        def fn(q, k, v, bias):
+            return _dense_cuda(q, k, v, 1.0 / math.sqrt(d), bias)
     before = _build.KERNELS["dense_fwd"].launches
     out, lse = fn(q, k, v, bias=bias)
     torch.cuda.synchronize()
     assert _build.KERNELS["dense_fwd"].launches == before + 1
     ref_out, ref_lse = dense_attention_with_lse(q, k, v, bias=bias)
-    assert out.shape == (1, 3, lq, dv) and lse.dtype == torch.float32
+    assert out.shape == (1, heads, lq, dv) and lse.dtype == torch.float32
     assert _err(out, ref_out) <= OUT_TOL
     assert _err(lse, ref_lse) <= LSE_TOL
 
@@ -112,12 +132,19 @@ def test_sparse_kernel_matches_plain(dev, lq, lk, d):
     assert lse[0, 1, 128:256].max().item() == torch.tensor(NEG_INF).item()
 
 
-@pytest.mark.parametrize("lk,d", [(2048, 128), (1000, 128), (333, 64)])
-def test_pack_kernel_bit_exact(dev, lk, d):
+@pytest.mark.parametrize("bh,lk,d", [
+    (3, 2048, 128), (3, 1000, 128), (3, 333, 64),
+    (12, 32760, 128),  # Wan 480p: 256 blocks, a ragged last one
+    (66000, 100, 64),  # more heads than one grid column holds (65535)
+    (2, 300, 24),      # a row width with no compiled form
+])
+def test_pack_kernel_bit_exact(dev, bh, lk, d):
     gen = torch.Generator(device=dev).manual_seed(lk + d)
-    k, v = _rand(gen, 3, lk, d, dev=dev), _rand(gen, 3, lk, d, dev=dev)
+    k, v = _rand(gen, bh, lk, d, dev=dev), _rand(gen, bh, lk, d, dev=dev)
+    before = _build.KERNELS["pack_kv"].launches
     got = pack_kv(k, v)
     torch.cuda.synchronize()
+    assert _build.KERNELS["pack_kv"].launches == before + 1
     assert torch.equal(got, _pack_kv_reference(k, v))
 
 
