@@ -1,6 +1,6 @@
-// The forward flash-attention tile shared by flash_attn.cu, sparse_union.cu,
-// multilevel_attn.cu, pooled_level_attn.cu and pooled_predictor.cu (and its
-// pooled-segment gather by pooled_level_bwd.cu): one CTA
+// The forward flash-attention tile shared by sparse_union.cu,
+// multilevel_attn.cu and pooled_predictor.cu (and its pooled-segment gather
+// by pooled_level_bwd.cu): one CTA
 // of 4 warps owns 64 query rows (16 a warp, FA2 register layout) and folds
 // 64-key tiles staged in shared memory into a base-2 online-softmax carry,
 // both products on mma.sync m16n8k16 bf16 tensor cores with f32
@@ -15,9 +15,6 @@ constexpr int BM = 64;  // query rows per CTA: 4 warps x 16
 constexpr int BN = 64;  // keys per shared-memory tile
 constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
-constexpr float LN2 = 0.6931471805599453f;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float NEG_INF_LSE = -1e30f;
 
 template <int D, int DVC>
 struct WarpState {

@@ -16,18 +16,18 @@
 //
 // What bounds it on the H100: tensor-core math over the selected keys (at
 // CogVideoX 480p ~0.74 TFLOP a call against ~0.1 GB of K/V records read),
-// plus the list walk.  The design reuses the dense/sparse forward tile
+// plus the list walk.  The design reuses the mma.sync forward tile
 // (flash_tile.cuh): one CTA per 64 query rows (4 warps x 16, mma.sync
 // m16n8k16, FA2 register layout, base-2 carry) walks its mask row's four
-// lists.  Level 1 streams each listed record as two 64-key halves, as
-// bt_attn_sparse_fwd does; level L packs 64 / (128/L) listed segments into
-// one 64-key shared-memory tile and adds log2(L) to its base-2 scores; a
-// 64-bit column mask marks the live keys of each tile.  The TPU kernel's
-// FUSED_ROWS grouping, single-shot merged tile, band-sized pooled tiles,
-// level-2 DMA pipeline and 8-sublane list layout are TPU tilings of the same
-// function and are not carried over.  Synchronous loads (no cp.async / TMA,
+// lists.  Level 1 streams each listed record as two 64-key halves; level L
+// packs 64 / (128/L) listed segments into one 64-key shared-memory tile and
+// adds log2(L) to its base-2 scores; a 64-bit column mask marks the live
+// keys of each tile.  The TPU kernel's FUSED_ROWS grouping, single-shot
+// merged tile, band-sized pooled tiles, level-2 DMA pipeline and 8-sublane
+// list layout are TPU tilings of the same function and are not carried
+// over.  Synchronous loads (no cp.async / TMA,
 // no wgmma) in this first version.  The pooled-level walk (walk_pooled) is
-// in flash_tile.cuh, shared with pooled_level_attn.cu.
+// in flash_tile.cuh.
 #include "flash_tile.cuh"
 
 namespace bt {

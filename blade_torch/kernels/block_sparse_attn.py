@@ -2,10 +2,12 @@
 
 Counterpart of ``blade/kernels/block_sparse_attn.py``'s public API:
 ``flash_attention``, ``flash_attention_wide_v`` and
-``block_sparse_attention``.  On the card the forwards launch the kernels of
-``csrc/flash_attn.cu`` (bf16 in, f32 accumulate, ``(out, lse)`` out) and
-the backwards those of ``csrc/flash_attn_bwd.cu``; CPU tensors take the
-plain versions in ``kernels/ref_attention.py``.
+``block_sparse_attention``.  On the card the dense forwards launch the
+kernel of ``csrc/flash_attn.cu``, the block-sparse forward the gather kernel
+of ``csrc/gather_attn.cu`` over ``pack_kv``'s records (both bf16 in, f32
+accumulate, ``(out, lse)`` out), and the backwards those of
+``csrc/flash_attn_bwd.cu``; CPU tensors take the plain versions in
+``kernels/ref_attention.py``.
 
 ``flash_attention`` and ``block_sparse_attention`` are differentiable
 through one ``torch.autograd.Function``, the counterpart of JAX's
@@ -63,7 +65,7 @@ _dense_kernel = CudaKernel(
 )
 _sparse_kernel = CudaKernel(
     "sparse_fwd", "bt_attn_sparse_fwd", "ppppppiiiiiiffp",
-    source="blade_torch/csrc/flash_attn.cu",
+    source="blade_torch/csrc/gather_attn.cu",
     replaces="blade/kernels/block_sparse_attn.py:360",  # _sparse_fwd_rows_kernel
 )
 _union_kernel = CudaKernel(

@@ -14,7 +14,7 @@ and values with a ``+log(L)`` score bias; all levels share one softmax.
 * The per-level lane (every other geometry, e.g. Wan2.1-14B 720p with 591
   key blocks) takes an int level mask at 128-row granularity.  Level 1 runs
   ``block_sparse_attention`` (``pack_kv`` + the sparse kernel); each pooled
-  level runs ``bt_pooled_level_fwd`` (``csrc/pooled_level_attn.cu``) over
+  level runs ``bt_pooled_level_fwd`` (``csrc/gather_attn.cu``) over
   that level's ``pack_kv_pyramid`` records; the four ``(out, lse)`` pairs
   are merged exactly by LSE in f32.
 
@@ -79,7 +79,7 @@ _ml_kernel = CudaKernel(
 )
 _pooled_kernel = CudaKernel(
     "pooled_level_fwd", "bt_pooled_level_fwd", "ppppppiiiiiiiifp",
-    source="blade_torch/csrc/pooled_level_attn.cu",
+    source="blade_torch/csrc/gather_attn.cu",
     # _sparse_fwd_kernel (HBM-gathered segments) and _vmem_level_kernel
     # (resident pyramid): one function, two TPU memory placements
     replaces="blade/kernels/block_sparse_attn.py:233; blade/kernels/multilevel_attn.py:62",

@@ -212,7 +212,7 @@ def pooled_level_attention_reference(
     pooled_valid_len: int,
 ):
     """One pooled level of multi-level attention: the plain version of the
-    pooled-level kernel (``csrc/pooled_level_attn.cu``).
+    pooled-level kernel (``csrc/gather_attn.cu``).
 
     ``k_pool, v_pool [..., Lp, D]``: the level-``level`` mean-pooled K/V,
     whose ``128 // level``-row segment ``b`` stands for key block ``b``;

@@ -13,9 +13,10 @@ no result):
    main-path shapes of Wan2.1-1.3B 480p (B=1, H=12, d=128, L=32760), with
    max |err| against a stated tolerance, both times from CUDA events, the
    least time the card could take (``bound_ms``) and, where one PyTorch call
-   computes the same function, that call's time (``library_ms``; the
-   attention and ``pack_kv`` kernels and their library calls are timed in
-   turns, A B B A);
+   computes the same function, that call's time (``library_ms``; for the
+   sparse kernel one memory-efficient SDPA with the block mask expanded to
+   an additive token mask; the attention and ``pack_kv`` kernels and their
+   library calls are timed in turns, A B B A);
 4. the main path: the full-width Wan2.1-T2V-1.3B ``wan-1.3b-480p`` preset on
    random weights from a seeded generator serves two requests through
    ``build_pipeline`` and ``T2VPipeline.generate`` (8 UniPC steps, flow shift
@@ -56,9 +57,10 @@ no result):
    V width 640; the plain version on 4 heads) and ``pack_kv`` at 14B K/V
    shapes (against ``torch.stack``); the pooled-level kernel against its
    plain version at Wan2.1-14B 720p shapes (B=1, H=40, d=128, L=75600, a
-   level mask from the real predictor), once for each of levels 2, 4 and 8;
-   then the whole per-level multilevel lane and dense flash attention at
-   that shape, timed;
+   level mask from the real predictor), once for each of levels 2, 4 and 8,
+   and the sparse kernel on the level-1 lists (its plain version on 4
+   heads); then the whole per-level multilevel lane and dense flash
+   attention at that shape, timed;
 13. the Wan2.1-14B serving path: the full-width, full-depth
    ``wan-14b-720p`` preset with ``--mask_mode multilevel`` (40 blocks, dim
    5120, 40 heads of 128, 591 key blocks: the per-level lane) on random
@@ -244,6 +246,14 @@ def _level_pairs(idx, cnt, lq, lk, level, q_rows):
     return float(((keys * live).sum(-1).double() * rows).sum())
 
 
+def _row_blocks(mask):
+    """'blocks a row min/mean/max' of a block mask: the spread of the gather
+    kernels' CTA lengths."""
+    cnt = mask.sum(-1).float()
+    return (f"blocks a row {cnt.min().item():.0f}/{cnt.mean().item():.1f}/"
+            f"{cnt.max().item():.0f}")
+
+
 def _multilevel_pairs(idx, cnt, lq, lk, q_rows):
     """Query-key pairs the four per-level lists select (levels 1, 2, 4, 8)."""
     return sum(_level_pairs(idx[..., li, :], cnt[..., li], lq, lk, level, q_rows)
@@ -283,6 +293,37 @@ def _attn_check(torch, record, kernel, shape, fn, plain, reps, plain_reps=1, mai
     record(kernel, shape, ok, max(err_out, err_lse), ms, _cuda_ms(torch, plain, plain_reps),
            f"out {err_out:.3e} <= 2e-2*max|ref| ({ref_max:.4e}), lse {err_lse:.3e} <= 5e-3",
            main, flops, nbytes + _nbytes(out, lse), lib_ms)
+
+
+def _additive_mask(torch, mask, length, seg=128, keys=None):
+    """The block mask ``[B, H, n_qt, n_kt]`` (128-row mask rows, blocks of
+    ``seg`` keys) expanded to the token mask that one SDPA call takes: bf16
+    ``[B, H, length, keys]`` (``keys`` defaults to ``length``), 0 where a
+    key is selected and -inf elsewhere, rows padded to a multiple of 16
+    elements (the fused kernels' alignment; the view hides the padding).
+    Built in 128-row bands, outside any timed region; 25.8 GB at Wan 480p,
+    30.3 GB at CogVideoX, 57.2 GB at the 14B level 8 (``seg`` 16)."""
+    b, h, n_qt, _ = mask.shape
+    keys = length if keys is None else keys
+    width = -(-keys // 16) * 16
+    out = torch.empty((b, h, length, width), dtype=torch.bfloat16, device=mask.device)
+    zero = torch.zeros((), dtype=torch.bfloat16, device=mask.device)
+    ninf = torch.full((), float("-inf"), dtype=torch.bfloat16, device=mask.device)
+    for i in range(n_qt):
+        cols = mask[:, :, i].repeat_interleave(seg, dim=-1)[..., :keys]
+        band = out[:, :, 128 * i:128 * (i + 1), :keys]
+        band.copy_(torch.where(cols, zero, ninf)[:, :, None, :].expand_as(band))
+    return out[..., :keys]
+
+
+def _masked_sdpa(torch, q, k, v, attn_mask):
+    """The library call of the block-sparse forward: one memory-efficient
+    SDPA with the additive token mask (the one fused SDPA kernel that takes
+    an arbitrary mask; the math fallback would hold the full score matrix)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask)
 
 
 def _dense_work(q, k, v):
@@ -351,10 +392,15 @@ def check_kernels(torch, dev, checks):
     # -- sparse rows (#2) with a mask from the real predictor -----------------
     mask = asa.compute_mask(q, k, cfg, generator=make_generator(7, dev))
     density = mask.float().mean().item()
-    attn_check("sparse_fwd", f"q,k,v [1,12,32760,128] density {density:.4f}",
+    attn_mask = _additive_mask(torch, mask, L)
+    attn_check("sparse_fwd", f"q,k,v [1,12,32760,128] density {density:.4f} "
+               f"{_row_blocks(mask)}",
                lambda: block_sparse_attention(q, k, v, mask),
                lambda: block_masked_attention(q, k, v, mask, block_k=128), 10, 1, True,
-               4.0 * d * _block_pairs(mask, L, L), _nbytes(q, k, v, mask))
+               4.0 * d * _block_pairs(mask, L, L), _nbytes(q, k, v, mask),
+               library=lambda: _masked_sdpa(torch, q, k, v, attn_mask))
+    del attn_mask
+    torch.cuda.empty_cache()
 
     # -- pack_kv (#3), bit exact; the library call is its plain torch.stack --
     kf, vf = randn(h, 32768, d), randn(h, 32768, d)
@@ -947,16 +993,18 @@ def check_wan14b_pooled(torch, dev, checks):
     """Phase 12: the pooled-level kernel against its plain version at the
     Wan2.1-14B 720p shapes, one check a level (2 and 4 at the HBM-gather TPU
     kernel's geometry, 8 at the resident-pyramid one), with a level mask
-    from the real predictor; then the whole per-level lane against dense
-    flash attention at the same shape."""
+    from the real predictor, and the sparse kernel on its level-1 lists;
+    then the whole per-level lane against dense flash attention at the same
+    shape."""
     from blade_torch import config as C
     from blade_torch.attention import asa
     from blade_torch.attention.masks import mask_to_block_lists
-    from blade_torch.kernels.block_sparse_attn import flash_attention
+    from blade_torch.kernels.block_sparse_attn import block_sparse_attention, flash_attention
     from blade_torch.kernels.multilevel_attn import (
         multilevel_attention, pooled_level_from_records)
     from blade_torch.kernels.pack import pack_kv_pyramid
-    from blade_torch.kernels.ref_attention import pooled_level_attention_reference
+    from blade_torch.kernels.ref_attention import (
+        block_masked_attention, pooled_level_attention_reference)
     from blade_torch.utils.rng import make_generator
 
     check_wan14b_predictor(torch, dev, checks)
@@ -980,6 +1028,11 @@ def check_wan14b_pooled(torch, dev, checks):
         pooled = rec.view(h, n_kt, 2, seg, d)
         k_pool, v_pool = (pooled[:, :, i].reshape(h, n_kt * seg, d) for i in (0, 1))
         pairs = _level_pairs(idx, cnt, length, length, level, 128)
+        library, attn_mask = None, None
+        if level == 8:  # the one level whose token mask fits beside the rest (57.2 GB)
+            attn_mask = _additive_mask(torch, mask[None], length, seg, pvl)
+            kp, vp = (t[None, :, :pvl] for t in (k_pool, v_pool))
+            library = lambda: _masked_sdpa(torch, q, kp, vp, attn_mask)
         _attn_check(torch, record, "pooled_level_fwd",
                     f"level {level} q [1,{h},{length},{d}] pyramid "
                     f"{rec[0].numel() * 2 / 2**20:.2f} MiB/head key share "
@@ -989,9 +1042,24 @@ def check_wan14b_pooled(torch, dev, checks):
                     lambda: pooled_level_attention_reference(
                         q3, k_pool, v_pool, mask, level=level, scale=scale,
                         pooled_valid_len=pvl),
-                    10, 1, level == 2, 4.0 * d * pairs, _nbytes(q3, rec, idx, cnt))
+                    10, 1, level == 2, 4.0 * d * pairs, _nbytes(q3, rec, idx, cnt),
+                    library=library)
+        del library, attn_mask
+        torch.cuda.empty_cache()
         print(f"pooled level {level}: mean blocks a row {cnt.float().mean().item():.2f}")
     del records
+    # Level 1: the sparse kernel (#2) over the 14B level-1 lists, its plain
+    # version on the first `sub` heads.
+    mask1, sub = levels == 1, 4
+    _attn_check(torch, record, "sparse_fwd",
+                f"14b level 1 q,k,v [1,{h},{length},{d}] density "
+                f"{mask1.float().mean().item():.4f} {_row_blocks(mask1)} (plain: {sub} heads)",
+                lambda: block_sparse_attention(q, k, v, mask1),
+                lambda: block_masked_attention(q[:, :sub], k[:, :sub], v[:, :sub],
+                                               mask1[:, :sub], block_k=128),
+                5, 1, False, 4.0 * d * _block_pairs(mask1, length, length),
+                _nbytes(q, k, v, mask1), heads=sub)
+    del mask1
     lane_ms = _cuda_ms(torch, lambda: multilevel_attention(q, k, v, levels), 3)
     dense_ms = _cuda_ms(torch, lambda: flash_attention(q, k, v), 2)
     print(f"wan14b attention at [1,{h},{length},{d}]: per-level multilevel lane "
@@ -1432,11 +1500,15 @@ def check_cog_energy(torch, dev, checks):
            _cuda_ms(torch, lambda: _pack_kv_reference(kf, vf), 5), "bit exact", False, 0.0,
            _nbytes(kf, vf, rec))
     pairs = _block_pairs(mask, length, length)
+    attn_mask = _additive_mask(torch, mask, length)
     _attn_check(torch, record, "sparse_fwd",
                 f"cog q,k,v [1,{h},{length},{d}] density {density:.4f}",
                 lambda: block_sparse_attention(q, k, v, mask),
                 lambda: block_masked_attention(q, k, v, mask, block_k=128), 5, 1, False,
-                4.0 * d * pairs, _nbytes(q, k, v, mask))
+                4.0 * d * pairs, _nbytes(q, k, v, mask),
+                library=lambda: _masked_sdpa(torch, q, k, v, attn_mask))
+    del attn_mask
+    torch.cuda.empty_cache()
     _bwd_check(torch, record, gen, "sparse", f"cog q,k,v,dO [1,{h},{length},{d}] density "
                f"{density:.4f}", q, k, v, mask, 0.0, reps=3)
     kp, vp = (pad_to_block_multiple(t, gap).float().reshape(1, h, -1, gap, d).mean(3)

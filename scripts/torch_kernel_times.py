@@ -3,8 +3,9 @@
 forward-kernel checks alone (phases 3, 9 and 15: each kernel against its
 plain version at the main-path shapes of Wan2.1-1.3B 480p and CogVideoX-5B
 480p, and the "max" predictor, union-gathered sparse and head-relayout
-kernels; the dense kernel as the Wan2.1-14B predictor of phase 12 and as the
-CogVideoX pooled branch of phase 18).
+kernels; phase 12 at Wan2.1-14B 720p: the dense kernel as its predictor,
+the three pooled levels and the sparse kernel on the level-1 lists; the
+dense kernel as the CogVideoX pooled branch of phase 18).
 
     python3 scripts/torch_kernel_times.py [PHASE ...]
 
@@ -41,7 +42,7 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev, checks = torch.device("cuda"), {}
-    names = sys.argv[1:] or ["check_kernels", "check_dense_d64", "check_wan14b_predictor",
+    names = sys.argv[1:] or ["check_kernels", "check_dense_d64", "check_wan14b_pooled",
                              "check_cog_pooled_fwd", "check_cog_multilevel",
                              "check_last_kernels"]
     for name in names:

@@ -113,19 +113,28 @@ def test_dense_kernel_matches_plain(dev, lq, lk, d, dv, bias, heads):
     assert _err(lse, ref_lse) <= LSE_TOL
 
 
-@pytest.mark.parametrize("lq,lk,d", [(300, 330, 128), (512, 512, 128), (260, 200, 64)])
-def test_sparse_kernel_matches_plain(dev, lq, lk, d):
+@pytest.mark.parametrize("lq,lk,d,heads", [
+    (300, 330, 128, 2), (512, 512, 128, 2), (260, 200, 64, 2),
+    # 13 and 14 key blocks, ragged lq and lk: the full row's list wraps the
+    # ring of 3 (d 128) or 4 (d 64) stages several times
+    (1600, 1600, 128, 2), (1700, 1650, 64, 2),
+    # 2 x 40 x 5 mask rows: more CTAs than one wave on 132 SMs
+    (600, 700, 128, 40),
+])
+def test_sparse_kernel_matches_plain(dev, lq, lk, d, heads):
     gen = torch.Generator(device=dev).manual_seed(lq * lk + d)
-    q, k, v = (_rand(gen, 2, 2, n, d, dev=dev) for n in (lq, lk, lk))
+    q, k, v = (_rand(gen, 2, heads, n, d, dev=dev) for n in (lq, lk, lk))
     n_qt, n_kt = -(-lq // 128), -(-lk // 128)
-    mask = torch.rand((2, 2, n_qt, n_kt), generator=gen, device=dev) > 0.5
+    mask = torch.rand((2, heads, n_qt, n_kt), generator=gen, device=dev) > 0.5
     mask[..., -1] = True  # the ragged tail block
+    mask[0, 1, 0] = True  # every block, next to
     mask[0, 1, 1] = False  # an empty row
     before = _build.KERNELS["sparse_fwd"].launches
     out, lse = block_sparse_attention(q, k, v, mask, bias=0.25)
     torch.cuda.synchronize()
     assert _build.KERNELS["sparse_fwd"].launches == before + 1
     ref_out, ref_lse = block_masked_attention(q, k, v, mask, block_k=128, bias=0.25)
+    assert torch.isfinite(out.float()).all()
     assert _err(out, ref_out) <= OUT_TOL
     assert _err(lse, ref_lse) <= LSE_TOL
     assert out[0, 1, 128:256].abs().max().item() == 0.0
@@ -194,23 +203,35 @@ def test_multilevel_kernel_matches_plain(dev, l, d, q_rows, ratios, cap):
     assert lse[0, 1, :q_rows].max().item() == torch.tensor(NEG_INF).item()
 
 
-@pytest.mark.parametrize("level,lq,lk,d", [
-    (2, 300, 1100, 128),   # ragged keys: the last pooled rows past ceil(lk/2) masked
-    (4, 1000, 1100, 64),   # pooled tail row mixing real and edge-repeated keys
-    (8, 260, 900, 128),
-    (8, 640, 4000, 64),
-    (4, 520, 640, 128),    # whole blocks
+@pytest.mark.parametrize("level,lq,lk,d,bh", [
+    (2, 300, 1100, 128, 3),   # ragged keys: the last pooled rows past ceil(lk/2) masked
+    (4, 1000, 1100, 64, 3),   # pooled tail row mixing real and edge-repeated keys
+    (8, 260, 900, 128, 3),
+    (8, 640, 4000, 64, 3),
+    (4, 520, 640, 128, 3),    # whole blocks
+    (2, 700, 2000, 64, 3),    # level 2 at d 64
+    # lists longer than the ring: the full row walks 8, 6 and 7 ring tiles
+    # of 2, 4 and 8 segments through 3 (d 128) or 4 (d 64) stages
+    (2, 400, 2000, 128, 3),
+    (4, 300, 3000, 64, 3),
+    (8, 300, 7000, 128, 3),
+    # 60 x 6 mask rows: more CTAs than one wave on 132 SMs
+    (4, 700, 1500, 128, 60),
 ])
-def test_pooled_level_kernel_matches_plain(dev, level, lq, lk, d):
-    """One empty row and one row with every block included; the plain
-    version reads the same bf16 pooled records in f32."""
-    gen = torch.Generator(device=dev).manual_seed(level * 1000 + lq + lk + d)
-    q = _rand(gen, 3, lq, d, dev=dev)
-    k, v = _rand(gen, 3, lk, d, dev=dev), _rand(gen, 3, lk, d, dev=dev)
+def test_pooled_level_kernel_matches_plain(dev, level, lq, lk, d, bh):
+    """One row with one block (the last: a ring tile with one slot filled),
+    one empty row next to one with every block included; the
+    plain version reads the same bf16 pooled records in f32."""
+    gen = torch.Generator(device=dev).manual_seed(level * 1000 + lq + lk + d + bh)
+    q = _rand(gen, bh, lq, d, dev=dev)
+    k, v = _rand(gen, bh, lk, d, dev=dev), _rand(gen, bh, lk, d, dev=dev)
     rec = pack_kv_pyramid(k, v)[{2: 1, 4: 2, 8: 3}[level]]
     n_qt, n_kt = -(-lq // 128), -(-lk // 128)
-    mask = torch.rand((3, n_qt, n_kt), generator=gen, device=dev) < 0.4
+    mask = torch.rand((bh, n_qt, n_kt), generator=gen, device=dev) < 0.4
+    mask[0, 0] = False
+    mask[0, 0, -1] = True  # one block
     mask[1, 1] = False  # an empty row
+    mask[1, 0] = True  # every block
     mask[2, 0] = True  # every block
     seg, pvl = 128 // level, -(-lk // level)
     before = _build.KERNELS["pooled_level_fwd"].launches
@@ -218,9 +239,9 @@ def test_pooled_level_kernel_matches_plain(dev, level, lq, lk, d):
                                       pooled_valid_len=pvl)
     torch.cuda.synchronize()
     assert _build.KERNELS["pooled_level_fwd"].launches == before + 1
-    r = rec.view(3, n_kt, 2, seg, d)
+    r = rec.view(bh, n_kt, 2, seg, d)
     ref_out, ref_lse = pooled_level_attention_reference(
-        q, r[:, :, 0].reshape(3, -1, d), r[:, :, 1].reshape(3, -1, d), mask, level=level,
+        q, r[:, :, 0].reshape(bh, -1, d), r[:, :, 1].reshape(bh, -1, d), mask, level=level,
         scale=d ** -0.5, pooled_valid_len=pvl)
     assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
     assert _err(out, ref_out) <= OUT_TOL
