@@ -16,42 +16,354 @@
 //        outside, in torch, as JAX computes it in XLA),
 //   dq = scale * ds . k,  dk = scale * ds^T . q,  dv = p^T . dO,
 // with p and ds rounded to bf16 before each product, as the TPU kernels feed
-// the MXU.  dQ and dK/dV are separate kernels, so no atomics: a dQ CTA owns
-// 64 query rows and loops over keys, a dK/dV CTA owns 64 keys and loops over
-// queries.  Keys at or past `lk` and query rows at or past `lq` contribute
-// nothing.  A row whose LSE is the empty-row marker (-1e30) is treated as
-// empty (p = 0): exp2 never sees that LSE.
+// the MXU.  dQ and dK/dV are separate kernels, so no atomics and the result
+// is deterministic: a dQ CTA owns query rows and loops over keys, a dK/dV
+// CTA owns keys and loops over queries.  Keys at or past `lk` and query rows
+// at or past `lq` contribute nothing.  A row whose LSE is the empty-row
+// marker (-1e30) is treated as empty (p = 0): exp2 never sees that LSE.
 //
-// What bounds it on the H100: tensor-core math, as in the forward (five
-// 64 x 64 x d products a tile pair against the forward's two, plus the
-// recomputed exp2), with K/V or Q/dO tiles re-read from L2 by the CTAs of
-// one head.  The design keeps every product on mma.sync m16n8k16 bf16
-// tensor cores with f32 accumulators in registers (the score/ds fragments
-// are reused in registers as the A operand of the next product, as the
-// forward reuses P), and streams the other side's tiles through shared
-// memory with 16-byte loads.  The dK/dV kernel computes the transposed
-// scores s^T = K . Q^T directly, so the key dimension is the MMA's row
-// dimension and dK, dV accumulate in registers without a transpose; its
-// K, V, Q and dO tiles (70 KB at d = 128) live in dynamic shared memory.
-// This first version is synchronous (no cp.async / TMA pipeline, no wgmma).
-// The tiles (dq_tile, dkv_tile and their loads and stores) are in
-// flash_bwd_tile.cuh, shared with pooled_level_bwd.cu.
-#include "flash_bwd_tile.cuh"
+// What bounds it on the H100: tensor-core math, five products of q.k pairs
+// x d where the forward has two (dQ: S, dP, dQ; dK/dV: S, dP, dV, dK; the
+// dense pair recomputes S and dP once each: seven in all), plus the
+// recomputed exp2.  At the Wan 480p dense leg (32760^2, d 128, 12 heads)
+// the pair's seven products take 23.3 ms at 989 TFLOP/s; at its pooled
+// branch (1092 keys) 0.778 ms; at the CogVideoX pooled branch (d 64, 48
+// heads, 1186 keys) 0.917 ms.
+//
+// The dense pair (dense_dq_kernel, dense_dkv_kernel) is the dense forward's
+// design (flash_attn.cu): a CTA of 384 threads whose producer warpgroup
+// issues TMA loads through 3-D tensor maps over [bh, l, d] (a box past a
+// head's rows comes back zero-filled) into a ring of 4 stages with full and
+// empty mbarriers, and two consumer warpgroups of 64 rows on wgmma, their
+// registers raised with setmaxnreg; the consumers are in
+// flash_bwd_wgmma.cuh.
+//   * dK/dV: a CTA owns 128 keys with K and V resident; a stage brings 64
+//     query rows of Q and dO and, by 1-D TMA boxes over the flattened
+//     [bh * lq] statistics (a box starts on a 16-byte boundary, so up to 3
+//     rows early), the rows' raw lse, delta and g_lse; a second producer
+//     warp turns those into lse2 / rest in the stage, so the consumers read
+//     two float2 a column pair.  A consumer runs a tile's four products
+//     back to back: at 240 registers a thread, a second tile's S^T and dP^T
+//     beside dK, dV and the bf16 fragments spilled, and the two warpgroups
+//     already interleave on the tensor cores.
+//   * dQ: a CTA owns 128 query rows with Q and dO resident; a stage brings
+//     a tile of K and V (64 keys at d = 128, 128 at d = 64: S, dP and dQ
+//     in registers); the next tile's S and dP are issued before the current
+//     tile's dQ += dS K.
+// The sparse pair (attn_dq_kernel, attn_dkv_kernel) is still the first
+// design: mma.sync m16n8k16 with 64-row CTAs and synchronous 16-byte loads
+// into shared memory (no cp.async / TMA pipeline, no wgmma); its tiles
+// (dq_tile, dkv_tile) are in flash_bwd_tile.cuh, shared with
+// pooled_level_bwd.cu.
+#include "flash_bwd_wgmma.cuh"
 
 namespace bt {
 namespace bwd {
 
-// Dense: k, v [BH, lk, D].  Sparse: k holds pack_kv records
-// [BH, n_kt, 2, 128, D] (v unused) and lists/counts select the key blocks of
-// each 128-row mask row.
-template <int D, bool SPARSE>
+// ---- dense dK/dV: warp-specialised wgmma + TMA --------------------------------
+
+template <int D>
+struct DenseDkvTile {
+  static constexpr int KEYS = 128;                 // keys a CTA, 64 a consumer warpgroup
+  static constexpr int BQ = 64;                    // query rows a ring stage
+  static constexpr int THREADS = 384;              // producer + 2 consumer warpgroups
+  static constexpr int KV_BYTES = KEYS * D * 2;    // resident K, or V
+  static constexpr int QT_BYTES = BQ * D * 2;      // Q, or dO, of a stage
+  // A stage's statistics: raw lse, delta, g_lse of BQ + 4 rows from the
+  // 16-byte boundary at or below the tile's first row (a 1-D TMA box starts
+  // on one), each in a slot of RAW floats; then lse2 and rest [BQ].
+  static constexpr int RAW_BOX = BQ + 4, RAW = 96;
+  static constexpr int STAT_FLOATS = 3 * RAW + 2 * BQ;
+  static constexpr int STAT_BYTES = STAT_FLOATS * 4;
+  static constexpr int BAR_BYTES = 128;
+  static constexpr int FIT =
+      (232448 - 1024 - BAR_BYTES - 2 * KV_BYTES) / (2 * QT_BYTES + STAT_BYTES);
+  static constexpr int STAGES = FIT > 4 ? 4 : FIT;
+  // + 1024: the dynamic base is aligned up to the swizzle period.
+  static constexpr int SMEM =
+      1024 + 2 * KV_BYTES + STAGES * (2 * QT_BYTES + STAT_BYTES) + BAR_BYTES;
+  static_assert(STAGES >= 2, "two ring stages must fit");
+  static_assert(8 * (1 + 3 * STAGES) <= BAR_BYTES, "barrier space");
+  static_assert(RAW_BOX <= RAW && RAW * 4 % 128 == 0 && STAT_BYTES % 128 == 0,
+                "TMA destinations on 128 bytes");
+};
+
+// One CTA: keys [128 blockIdx.x, + 128) of head blockIdx.y against every
+// query row.  Maps: q, dout [bh, lq, D] (box 64 x 64), k, v [bh, lk, D]
+// (box 64 x 128), all 128-byte swizzled; lse, delta, glse over [bh lq]
+// (box 68).  Producer warpgroup: thread 0 issues every load (a stage's
+// tiles and raw statistics complete its `raw` barrier); warp 1 turns each
+// stage's raw statistics into lse2 / rest and its lanes arrive on `full`.
+template <int D>
+__global__ void __launch_bounds__(DenseDkvTile<D>::THREADS, 1)
+dense_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                 const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap tl, const __grid_constant__ CUtensorMap td,
+                 const __grid_constant__ CUtensorMap tg, bf16* __restrict__ dk_out,
+                 bf16* __restrict__ dv_out, int lq, int lk, float c, float scale, float bias) {
+  using T = DenseDkvTile<D>;
+  constexpr int BQ = T::BQ, STAGES = T::STAGES, RAW = T::RAW;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  const uint32_t k_s = (base + 1023u) & ~1023u;
+  const uint32_t v_s = k_s + T::KV_BYTES;
+  const uint32_t q_r = v_s + T::KV_BYTES;             // stage s at q_r + s * QT_BYTES
+  const uint32_t do_r = q_r + STAGES * T::QT_BYTES;   // stage s at do_r + s * QT_BYTES
+  const uint32_t st_r = do_r + STAGES * T::QT_BYTES;  // stage s at st_r + s * STAT_BYTES
+  const uint32_t bar = st_r + STAGES * T::STAT_BYTES;
+  float* stats = reinterpret_cast<float*>(smem_raw + (st_r - base));
+  // Barriers: K/V, then raw, full and empty of each stage.
+  const uint32_t kv_full = bar, raw = bar + 8, full = raw + 8 * STAGES;
+  const uint32_t empty = full + 8 * STAGES;
+
+  const int bh = blockIdx.y, key0 = blockIdx.x * T::KEYS;
+  const int n_tiles = (lq + BQ - 1) / BQ;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(raw + 8 * s, 1);
+      mbar_init(full + 8 * s, 32);  // the lanes of the statistics warp
+      mbar_init(empty + 8 * s, 8);  // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup ----
+    setmaxnreg_dec<24>();  // 128 x 24 + 256 x 240 = 384 x 168, the launch budget
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_full, 2 * T::KV_BYTES);
+#pragma unroll
+      for (int cb = 0; cb < D / 64; ++cb) {
+        tma_load_3d(k_s + cb * 128 * 128, &tk, kv_full, cb * 64, key0, bh);
+        tma_load_3d(v_s + cb * 128 * 128, &tv, kv_full, cb * 64, key0, bh);
+      }
+      int stage = 0, phase = 0;
+      for (int it = 0; it < n_tiles; ++it) {
+        const int row0 = it * BQ;
+        mbar_wait(empty + 8 * stage, phase ^ 1);
+        const uint32_t f = raw + 8 * stage, st = st_r + stage * T::STAT_BYTES;
+        mbar_expect_tx(f, 2 * T::QT_BYTES + 3 * T::RAW_BOX * 4);
+#pragma unroll
+        for (int cb = 0; cb < D / 64; ++cb) {
+          tma_load_3d(q_r + stage * T::QT_BYTES + cb * BQ * 128, &tq, f, cb * 64, row0, bh);
+          tma_load_3d(do_r + stage * T::QT_BYTES + cb * BQ * 128, &tdo, f, cb * 64, row0, bh);
+        }
+        const int e0 = (bh * lq + row0) & ~3;
+        tma_load_1d(st, &tl, f, e0);
+        tma_load_1d(st + RAW * 4, &td, f, e0);
+        tma_load_1d(st + 2 * RAW * 4, &tg, f, e0);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    } else if (threadIdx.x >= 32 && threadIdx.x < 64) {
+      // Statistics warp: rows lane and lane + 32 of each tile.  Rows past
+      // lq brought the next head's values (or zeros past the last head).
+      const int lane = threadIdx.x & 31;
+      int stage = 0, phase = 0;
+      for (int it = 0; it < n_tiles; ++it) {
+        const int row0 = it * BQ, off = (bh * lq + row0) & 3;
+        mbar_wait(raw + 8 * stage, phase);
+        float* st = stats + stage * T::STAT_FLOATS;
+#pragma unroll
+        for (int i = lane; i < BQ; i += 32)
+          row_stats(st[off + i], st[RAW + off + i], st[2 * RAW + off + i], row0 + i < lq, bias,
+                    st[3 * RAW + i], st[3 * RAW + BQ + i]);
+        mbar_arrive(full + 8 * stage);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 keys each ----
+    setmaxnreg_inc<240>();
+    const int cw = threadIdx.x / 128 - 1, warp = (threadIdx.x / 32) & 3;
+    const int k0 = key0 + cw * 64 + warp * 16 + (threadIdx.x & 31) / 4, k1 = k0 + 8;
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    mbar_wait(kv_full, 0);
+    consume_dkv<D, BQ, STAGES>(dk, dv, k_s + cw * 64 * 128, v_s + cw * 64 * 128, q_r, do_r,
+                               stats + 3 * RAW, T::STAT_FLOATS, raw, full, empty, n_tiles, c,
+                               k0 < lk, k1 < lk);
+    store_acc_rows<D>(dk, dk_out + (size_t)bh * lk * D, k0, k1, lk, scale);
+    store_acc_rows<D>(dv, dv_out + (size_t)bh * lk * D, k0, k1, lk, 1.f);
+  }
+}
+
+// ---- dense dQ: warp-specialised wgmma + TMA -----------------------------------
+
+template <int D>
+struct DenseDqTile {
+  static constexpr int ROWS = 128;                  // query rows a CTA, 64 a consumer warpgroup
+  static constexpr int BN = D == 128 ? 64 : 128;    // keys a ring stage (registers: dq, S, dP)
+  static constexpr int THREADS = 384;
+  static constexpr int Q_BYTES = ROWS * D * 2;      // resident Q, or dO
+  static constexpr int KV_BYTES = BN * D * 2;       // K, or V, of a stage
+  static constexpr int BAR_BYTES = 128;
+  static constexpr int FIT = (232448 - 1024 - BAR_BYTES - 2 * Q_BYTES) / (2 * KV_BYTES);
+  static constexpr int STAGES = FIT > 4 ? 4 : FIT;
+  static constexpr int SMEM = 1024 + 2 * Q_BYTES + STAGES * 2 * KV_BYTES + BAR_BYTES;
+  static_assert(STAGES >= 2, "two ring stages must fit");
+  static_assert(8 * (1 + 2 * STAGES) <= BAR_BYTES, "barrier space");
+};
+
+// One CTA: query rows [128 blockIdx.x, + 128) of head blockIdx.y against
+// every key.  Maps: q, dout [bh, lq, D] (box 64 x 128), k, v [bh, lk, D]
+// (box 64 x BN).
+template <int D>
+__global__ void __launch_bounds__(DenseDqTile<D>::THREADS, 1)
+dense_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                const float* __restrict__ glse, bf16* __restrict__ dq_out, int lq, int lk,
+                float c, float scale, float bias) {
+  using T = DenseDqTile<D>;
+  constexpr int BN = T::BN, STAGES = T::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t do_s = q_s + T::Q_BYTES;
+  const uint32_t k_r = do_s + T::Q_BYTES;            // stage s at k_r + s * KV_BYTES
+  const uint32_t v_r = k_r + STAGES * T::KV_BYTES;   // stage s at v_r + s * KV_BYTES
+  const uint32_t bar = v_r + STAGES * T::KV_BYTES;
+  // Barriers: Q/dO, then full and empty of each stage.
+  const uint32_t q_full = bar, full = bar + 8, empty = full + 8 * STAGES;
+
+  const int bh = blockIdx.y, q0 = blockIdx.x * T::ROWS;
+  const int n_tiles = (lk + BN - 1) / BN;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread issues every load ----
+    setmaxnreg_dec<40>();  // 128 x 40 + 256 x 232 = 384 x 168
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, 2 * T::Q_BYTES);
+#pragma unroll
+      for (int cb = 0; cb < D / 64; ++cb) {
+        tma_load_3d(q_s + cb * 128 * 128, &tq, q_full, cb * 64, q0, bh);
+        tma_load_3d(do_s + cb * 128 * 128, &tdo, q_full, cb * 64, q0, bh);
+      }
+      int stage = 0, phase = 0;
+      for (int it = 0; it < n_tiles; ++it) {
+        mbar_wait(empty + 8 * stage, phase ^ 1);
+        const uint32_t f = full + 8 * stage;
+        mbar_expect_tx(f, 2 * T::KV_BYTES);
+#pragma unroll
+        for (int cb = 0; cb < D / 64; ++cb) {
+          tma_load_3d(k_r + stage * T::KV_BYTES + cb * BN * 128, &tk, f, cb * 64, it * BN, bh);
+          tma_load_3d(v_r + stage * T::KV_BYTES + cb * BN * 128, &tv, f, cb * 64, it * BN, bh);
+        }
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each ----
+    setmaxnreg_inc<232>();
+    const int cw = threadIdx.x / 128 - 1, warp = (threadIdx.x / 32) & 3;
+    const int r0 = q0 + cw * 64 + warp * 16 + (threadIdx.x & 31) / 4, r1 = r0 + 8;
+    const size_t h0 = (size_t)bh * lq;
+    float l0, l1, rr0, rr1;
+    row_stats(r0 < lq ? lse[h0 + r0] : 0.f, r0 < lq ? delta[h0 + r0] : 0.f,
+              r0 < lq ? glse[h0 + r0] : 0.f, r0 < lq, bias, l0, rr0);
+    row_stats(r1 < lq ? lse[h0 + r1] : 0.f, r1 < lq ? delta[h0 + r1] : 0.f,
+              r1 < lq ? glse[h0 + r1] : 0.f, r1 < lq, bias, l1, rr1);
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    mbar_wait(q_full, 0);
+    consume_dq<D, BN, STAGES>(dq, q_s + cw * 64 * 128, do_s + cw * 64 * 128, k_r, v_r, full,
+                              empty, n_tiles, c, l0, l1, rr0, rr1,
+                              [lk](int it, int) { return lk - it * BN; });
+    store_acc_rows<D>(dq, dq_out + h0 * D, r0, r1, lq, scale);
+  }
+}
+
+// The statistics' maps: lse, delta, glse [bh * lq] f32, boxes of `box`.
+static bool stat_maps(CUtensorMap* tl, CUtensorMap* td, CUtensorMap* tg, const void* lse,
+                      const void* delta, const void* glse, int bh, int lq, int box) {
+  const long long n = (long long)bh * lq;
+  return make_map_f32(tl, lse, n, box) && make_map_f32(td, delta, n, box) &&
+         make_map_f32(tg, glse, n, box);
+}
+
+template <int D>
+static int launch_dense_dq(const void* q, const void* k, const void* v, const void* dout,
+                           const void* lse, const void* delta, const void* glse, void* dq,
+                           int bh, int lq, int lk, float scale, float bias,
+                           cudaStream_t stream) {
+  using T = DenseDqTile<D>;
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        dense_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
+  CUtensorMap tq, tdo, tk, tv;
+  if (!make_map(&tq, q, bh, lq, D, T::ROWS) || !make_map(&tdo, dout, bh, lq, D, T::ROWS) ||
+      !make_map(&tk, k, bh, lk, D, T::BN) || !make_map(&tv, v, bh, lk, D, T::BN))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((lq + T::ROWS - 1) / T::ROWS, bh);
+  dense_dq_kernel<D><<<grid, T::THREADS, T::SMEM, stream>>>(
+      tq, tdo, tk, tv, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const float*>(glse), static_cast<bf16*>(dq), lq, lk, scale * LOG2E, scale,
+      bias);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+static int launch_dense_dkv(const void* q, const void* k, const void* v, const void* dout,
+                            const void* lse, const void* delta, const void* glse, void* dk,
+                            void* dv, int bh, int lq, int lk, float scale, float bias,
+                            cudaStream_t stream) {
+  using T = DenseDkvTile<D>;
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        dense_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
+  CUtensorMap tq, tdo, tk, tv, tl, td, tg;
+  if (!make_map(&tq, q, bh, lq, D, T::BQ) || !make_map(&tdo, dout, bh, lq, D, T::BQ) ||
+      !make_map(&tk, k, bh, lk, D, T::KEYS) || !make_map(&tv, v, bh, lk, D, T::KEYS) ||
+      !stat_maps(&tl, &td, &tg, lse, delta, glse, bh, lq, T::RAW_BOX))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((lk + T::KEYS - 1) / T::KEYS, bh);
+  dense_dkv_kernel<D><<<grid, T::THREADS, T::SMEM, stream>>>(
+      tq, tdo, tk, tv, tl, td, tg, static_cast<bf16*>(dk), static_cast<bf16*>(dv), lq, lk,
+      scale * LOG2E, scale, bias);
+  return (int)cudaGetLastError();
+}
+
+// ---- sparse: mma.sync ---------------------------------------------------------
+
+// k holds pack_kv records [BH, n_kt, 2, 128, D]; lists/counts select the key
+// blocks of each 128-row mask row.
+template <int D>
 __global__ void __launch_bounds__(NTHREADS)
 attn_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, const bf16* __restrict__ dout,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               const float* __restrict__ glse, const int* __restrict__ lists,
-               const int* __restrict__ counts, bf16* __restrict__ dq, int lq, int lk,
-               int n_qt, int max_k, float scale, float bias) {
+               const bf16* __restrict__ dout, const float* __restrict__ lse,
+               const float* __restrict__ delta, const float* __restrict__ glse,
+               const int* __restrict__ lists, const int* __restrict__ counts,
+               bf16* __restrict__ dq, int lq, int lk, int n_qt, int max_k, float scale,
+               float bias) {
   constexpr int LD = D + 8;
   __shared__ __align__(16) bf16 ks[BN * LD];
   __shared__ __align__(16) bf16 vs[BN * LD];
@@ -64,44 +376,31 @@ attn_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   init_dq<D>(st, q + (size_t)bh * lq * D, dout + (size_t)bh * lq * D, lse + (size_t)bh * lq,
              delta + (size_t)bh * lq, glse + (size_t)bh * lq, r0, r1, lq, bias);
 
-  if (!SPARSE) {
-    const bf16* kb = k + (size_t)bh * lk * D;
-    const bf16* vb = v + (size_t)bh * lk * D;
-    for (int key0 = 0; key0 < lk; key0 += BN) {
-      const int nvalid = min(BN, lk - key0);
+  const int n_kt = (lk + 127) / 128;
+  const int row = q0 / 128;
+  const int cnt = counts[bh * n_qt + row];
+  const int* lst = lists + ((size_t)bh * n_qt + row) * max_k;
+  const bf16* rec = k + (size_t)bh * n_kt * 256 * D;
+  for (int j = 0; j < cnt; ++j) {
+    const int blk = lst[j];
+    for (int half = 0; half < 2; ++half) {
+      const int nvalid = min(BN, lk - (blk * 128 + half * 64));
+      if (nvalid <= 0) continue;  // same for every thread of the CTA
       __syncthreads();
-      load_rows<D>(ks, kb + (size_t)key0 * D, D, nvalid);
-      load_rows<D>(vs, vb + (size_t)key0 * D, D, nvalid);
+      load_rows<D>(ks, rec + ((size_t)blk * 256 + half * 64) * D, D, nvalid);
+      load_rows<D>(vs, rec + ((size_t)blk * 256 + 128 + half * 64) * D, D, nvalid);
       __syncthreads();
       dq_tile<D>(st, ks, vs, prefix_valid(nvalid), c);
-    }
-  } else {
-    const int n_kt = (lk + 127) / 128;
-    const int row = q0 / 128;
-    const int cnt = counts[bh * n_qt + row];
-    const int* lst = lists + ((size_t)bh * n_qt + row) * max_k;
-    const bf16* rec = k + (size_t)bh * n_kt * 256 * D;
-    for (int j = 0; j < cnt; ++j) {
-      const int blk = lst[j];
-      for (int half = 0; half < 2; ++half) {
-        const int nvalid = min(BN, lk - (blk * 128 + half * 64));
-        if (nvalid <= 0) continue;  // same for every thread of the CTA
-        __syncthreads();
-        load_rows<D>(ks, rec + ((size_t)blk * 256 + half * 64) * D, D, nvalid);
-        load_rows<D>(vs, rec + ((size_t)blk * 256 + 128 + half * 64) * D, D, nvalid);
-        __syncthreads();
-        dq_tile<D>(st, ks, vs, prefix_valid(nvalid), c);
-      }
     }
   }
 
   store_dq<D>(st, dq + (size_t)bh * lq * D, r0, r1, lq, scale);
 }
 
-// Dense: every query tile.  Sparse: the query blocks of this key block's
-// transposed list (t_lists [BH, n_kt, max_q], t_counts [BH, n_kt]); the CTA
-// covers 64 keys, half of one 128-key block.
-template <int D, bool SPARSE>
+// The query blocks of this key block's transposed list (t_lists [BH, n_kt,
+// max_q], t_counts [BH, n_kt]); the CTA covers 64 keys, half of one
+// 128-key block.
+template <int D>
 __global__ void __launch_bounds__(NTHREADS)
 attn_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -120,7 +419,7 @@ attn_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* rests = lse2s + 64;
 
   const int bh = blockIdx.y, key0 = blockIdx.x * BM;
-  if (key0 >= lk) return;  // the ragged last block's empty half (sparse grid)
+  if (key0 >= lk) return;  // the ragged last block's empty half
   const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
   const int k0 = key0 + warp * 16 + g, k1 = k0 + 8;
   const float c = scale * LOG2E;
@@ -142,29 +441,19 @@ attn_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float* glse_b = glse + (size_t)bh * lq;
   const bool kv0 = k0 < lk, kv1 = k1 < lk;
 
-  if (!SPARSE) {
-    for (int row0 = 0; row0 < lq; row0 += BN) {
+  const int blk = key0 / 128;
+  const int cnt = t_counts[bh * n_kt + blk];
+  const int* lst = t_lists + ((size_t)bh * n_kt + blk) * max_q;
+  for (int j = 0; j < cnt; ++j) {
+    const int qblk = lst[j];
+    for (int half = 0; half < 2; ++half) {
+      const int row0 = qblk * 128 + half * 64;
+      if (row0 >= lq) continue;  // same for every thread of the CTA
       __syncthreads();
       load_query_tile<D>(qs, dos, lse2s, rests, qb, db, lse_b, delta_b, glse_b, row0, lq,
                          bias);
       __syncthreads();
       dkv_tile<D>(dk, dv, ks, vs, qs, dos, lse2s, rests, kv0, kv1, c);
-    }
-  } else {
-    const int blk = key0 / 128;
-    const int cnt = t_counts[bh * n_kt + blk];
-    const int* lst = t_lists + ((size_t)bh * n_kt + blk) * max_q;
-    for (int j = 0; j < cnt; ++j) {
-      const int qblk = lst[j];
-      for (int half = 0; half < 2; ++half) {
-        const int row0 = qblk * 128 + half * 64;
-        if (row0 >= lq) continue;  // same for every thread of the CTA
-        __syncthreads();
-        load_query_tile<D>(qs, dos, lse2s, rests, qb, db, lse_b, delta_b, glse_b, row0,
-                           lq, bias);
-        __syncthreads();
-        dkv_tile<D>(dk, dv, ks, vs, qs, dos, lse2s, rests, kv0, kv1, c);
-      }
     }
   }
 
@@ -172,37 +461,34 @@ attn_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                kv0, kv1, scale);
 }
 
-template <int D, bool SPARSE>
-static int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-                     const void* lse, const void* delta, const void* glse,
-                     const void* lists, const void* counts, void* dq, int bh, int lq,
-                     int lk, int n_qt, int max_k, float scale, float bias,
-                     cudaStream_t stream) {
+template <int D>
+static int launch_sparse_dq(const void* q, const void* kv, const void* dout, const void* lse,
+                            const void* delta, const void* glse, const void* lists,
+                            const void* counts, void* dq, int bh, int lq, int lk, int n_qt,
+                            int max_k, float scale, float bias, cudaStream_t stream) {
   const dim3 grid((lq + BM - 1) / BM, bh);
-  attn_dq_kernel<D, SPARSE><<<grid, NTHREADS, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const float*>(glse), static_cast<const int*>(lists),
-      static_cast<const int*>(counts), static_cast<bf16*>(dq), lq, lk, n_qt, max_k, scale,
-      bias);
+  attn_dq_kernel<D><<<grid, NTHREADS, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(kv),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const float*>(glse),
+      static_cast<const int*>(lists), static_cast<const int*>(counts), static_cast<bf16*>(dq),
+      lq, lk, n_qt, max_k, scale, bias);
   return (int)cudaGetLastError();
 }
 
-template <int D, bool SPARSE>
-static int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-                      const void* lse, const void* delta, const void* glse,
-                      const void* t_lists, const void* t_counts, void* dk, void* dv, int bh,
-                      int lq, int lk, int n_kt, int max_q, float scale, float bias,
-                      cudaStream_t stream) {
+template <int D>
+static int launch_sparse_dkv(const void* q, const void* k, const void* v, const void* dout,
+                             const void* lse, const void* delta, const void* glse,
+                             const void* t_lists, const void* t_counts, void* dk, void* dv,
+                             int bh, int lq, int lk, int n_kt, int max_q, float scale,
+                             float bias, cudaStream_t stream) {
   constexpr size_t smem = DkvSmem<D>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(attn_dkv_kernel<D, SPARSE>,
+  cudaError_t err = cudaFuncSetAttribute(attn_dkv_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int key_ctas = SPARSE ? 2 * n_kt : (lk + BM - 1) / BM;
-  const dim3 grid(key_ctas, bh);
-  attn_dkv_kernel<D, SPARSE><<<grid, NTHREADS, smem, stream>>>(
+  const dim3 grid(2 * n_kt, bh);
+  attn_dkv_kernel<D><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -229,11 +515,11 @@ BT_API int bt_attn_dense_dq(const void* q, const void* k, const void* v, const v
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bad_dims(bh, lq, lk)) return (int)cudaErrorInvalidValue;
   if (d == 128)
-    return launch_dq<128, false>(q, k, v, dout, lse, delta, glse, nullptr, nullptr, dq, bh,
-                                 lq, lk, 0, 0, scale, bias, st);
+    return launch_dense_dq<128>(q, k, v, dout, lse, delta, glse, dq, bh, lq, lk, scale, bias,
+                                st);
   if (d == 64)
-    return launch_dq<64, false>(q, k, v, dout, lse, delta, glse, nullptr, nullptr, dq, bh,
-                                lq, lk, 0, 0, scale, bias, st);
+    return launch_dense_dq<64>(q, k, v, dout, lse, delta, glse, dq, bh, lq, lk, scale, bias,
+                               st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -246,11 +532,11 @@ BT_API int bt_attn_dense_dkv(const void* q, const void* k, const void* v, const 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bad_dims(bh, lq, lk)) return (int)cudaErrorInvalidValue;
   if (d == 128)
-    return launch_dkv<128, false>(q, k, v, dout, lse, delta, glse, nullptr, nullptr, dk, dv,
-                                  bh, lq, lk, 0, 0, scale, bias, st);
+    return launch_dense_dkv<128>(q, k, v, dout, lse, delta, glse, dk, dv, bh, lq, lk, scale,
+                                 bias, st);
   if (d == 64)
-    return launch_dkv<64, false>(q, k, v, dout, lse, delta, glse, nullptr, nullptr, dk, dv,
-                                 bh, lq, lk, 0, 0, scale, bias, st);
+    return launch_dense_dkv<64>(q, k, v, dout, lse, delta, glse, dk, dv, bh, lq, lk, scale,
+                                bias, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -266,11 +552,11 @@ BT_API int bt_attn_sparse_dq(const void* q, const void* kv_packed, const void* d
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bad_dims(bh, lq, lk) || n_qt != (lq + 127) / 128) return (int)cudaErrorInvalidValue;
   if (d == 128)
-    return launch_dq<128, true>(q, kv_packed, nullptr, dout, lse, delta, glse, lists, counts,
-                                dq, bh, lq, lk, n_qt, max_k, scale, bias, st);
+    return launch_sparse_dq<128>(q, kv_packed, dout, lse, delta, glse, lists, counts, dq, bh,
+                                 lq, lk, n_qt, max_k, scale, bias, st);
   if (d == 64)
-    return launch_dq<64, true>(q, kv_packed, nullptr, dout, lse, delta, glse, lists, counts,
-                               dq, bh, lq, lk, n_qt, max_k, scale, bias, st);
+    return launch_sparse_dq<64>(q, kv_packed, dout, lse, delta, glse, lists, counts, dq, bh,
+                                lq, lk, n_qt, max_k, scale, bias, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -286,10 +572,10 @@ BT_API int bt_attn_sparse_dkv(const void* q, const void* k, const void* v, const
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bad_dims(bh, lq, lk) || n_kt != (lk + 127) / 128) return (int)cudaErrorInvalidValue;
   if (d == 128)
-    return launch_dkv<128, true>(q, k, v, dout, lse, delta, glse, t_lists, t_counts, dk, dv,
-                                 bh, lq, lk, n_kt, max_q, scale, bias, st);
+    return launch_sparse_dkv<128>(q, k, v, dout, lse, delta, glse, t_lists, t_counts, dk, dv,
+                                  bh, lq, lk, n_kt, max_q, scale, bias, st);
   if (d == 64)
-    return launch_dkv<64, true>(q, k, v, dout, lse, delta, glse, t_lists, t_counts, dk, dv,
-                                bh, lq, lk, n_kt, max_q, scale, bias, st);
+    return launch_sparse_dkv<64>(q, k, v, dout, lse, delta, glse, t_lists, t_counts, dk, dv,
+                                 bh, lq, lk, n_kt, max_q, scale, bias, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -72,6 +72,18 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map, uint3
       : "memory");
 }
 
+// Box of the 1-D map `map` starting at element c0 (see make_map_f32); the
+// start must lie on a 16-byte boundary (an f32 map: c0 % 4 == 0), or the
+// copy faults with an illegal instruction.
+__device__ __forceinline__ void tma_load_1d(uint32_t dst, const void* map, uint32_t bar,
+                                            int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
+      : "memory");
+}
+
 // ---- warpgroup registers ----------------------------------------------------
 
 template <int N>
@@ -342,6 +354,22 @@ static inline bool make_map(CUtensorMap* map, const void* base, int bh, int rows
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// 1-D f32 map over n elements, box of `box` elements (box * 4 a multiple of
+// 16 bytes), no swizzle, zero fill past n: the row statistics [bh * l] of
+// every head in one map, a box reaching into the next head where a head's
+// rows end.
+static inline bool make_map_f32(CUtensorMap* map, const void* base, long long n, int box) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {0};  // rank 1: none is read
+  const cuuint32_t boxd[1] = {(cuuint32_t)box};
+  const cuuint32_t elem[1] = {1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(base), dims, strides,
+            boxd, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace bt

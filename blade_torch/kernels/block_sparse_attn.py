@@ -6,7 +6,9 @@ Counterpart of ``blade/kernels/block_sparse_attn.py``'s public API:
 kernel of ``csrc/flash_attn.cu``, the block-sparse forward the gather kernel
 of ``csrc/gather_attn.cu`` over ``pack_kv``'s records (both bf16 in, f32
 accumulate, ``(out, lse)`` out), and the backwards those of
-``csrc/flash_attn_bwd.cu``; CPU tensors take the plain versions in
+``csrc/flash_attn_bwd.cu``: dQ and dK/dV in two kernels each, no atomics
+(the dense pair on ``wgmma`` with a TMA ring, the block-sparse pair still
+on ``mma.sync``); CPU tensors take the plain versions in
 ``kernels/ref_attention.py``.
 
 ``flash_attention`` and ``block_sparse_attention`` are differentiable

@@ -29,7 +29,11 @@ no result):
 6. the four backward kernels against the plain backward at main-path
    shapes (the pooled branch, the dense leg, and the sparse branch with a
    mask from the real predictor plus one forced empty row), with a non-zero
-   LSE cotangent;
+   LSE cotangent, each timed on its own (``delta = rowsum(dO * O)``, the
+   torch pass both share, timed apart) and in turns with one library
+   backward computing dQ, dK and dV (the dense pair: the faster of the
+   flash-attention and the cuDNN SDPA backward ops; the sparse pair: the
+   memory-efficient SDPA backward with the additive token mask);
 7. a small gradient check, the training twin of phase 5: LoRA gradients of
    one loss with kernels (bf16, card) against plain versions (f32, CPU);
 8. the training path: ``blade_torch.cli.train.main`` at full width
@@ -41,7 +45,10 @@ no result):
    CogVideoX-5B 480p shapes (B=1, H=48, d=64, L=17776, q_rows 256, lists
    from the real predictor): the multi-level kernel, the pyramid pack, the
    dense kernel at d=64 (predictor and dense leg); the multi-level kernel
-   and the pyramid pack also at Wan 480p shapes (d=128, L=32760);
+   and the pyramid pack also at Wan 480p shapes (d=128, L=32760); the
+   multi-level kernel timed in turns with one masked SDPA over the
+   concatenated level keys ``[K; K2; K4; K8]`` (a 0 / log L / -inf token
+   mask: every level in one softmax);
 10. the CogVideoX serving path: the full-width, full-depth
    ``cogvideox-5b-480p`` preset (42 blocks, dim 3072, 48 heads of 64) on
    random weights serves two requests through ``build_pipeline`` and
@@ -79,7 +86,8 @@ no result):
    predictor's pooled-scores kernel at Wan 480p with 32 and 16 tokens a
    block and at CogVideoX 480p with 32; the union-gathered sparse forward at
    Wan 480p on a mask from the real predictor with one forced empty row,
-   beside the 128-row sparse kernel on the same mask; the head relayouts
+   timed in turns with one masked SDPA on that mask, beside the 128-row
+   sparse kernel on the same mask; the head relayouts
    ``heads_pack`` / ``heads_unpack``, bit exact, at the Wan 1.3B and 14B
    q/k widths (no model calls them, as in the JAX package);
 16. path (a), the reference-parity predictor: the ``wan-1.3b-480p`` preset
@@ -99,10 +107,14 @@ no result):
    training shapes (H=48, L=17776 with the 226 text tokens, an energy mask
    from the real predictor): the dense forward on the pooled branch (1186
    pooled keys, +log 15 bias), the sparse forward, ``pack_kv``, the sparse
-   backward and the dense backward on the pooled branch;
+   backward and the dense backward on the pooled branch, each backward pair
+   timed in turns with its library backward as in phase 6;
 19. the pooled backward kernels (the multilevel backward) against their
    plain version at CogVideoX-5B 480p fused-lane shapes (p from the merged
-   lse), levels 2, 4 and 8, then the fused lane's dQ, dK, dV against torch
+   lse), levels 2, 4 and 8, each pair timed in turns with one
+   memory-efficient SDPA backward over that level's pooled K/V (token mask
+   log L / -inf, the merged out and lse as its saved outputs), then the
+   fused lane's dQ, dK, dV against torch
    autograd of its plain version on 4 heads, and its forward and backward
    timed on all 48;
 20. the same at Wan2.1-14B 720p per-level shapes (p from each level's own
@@ -200,21 +212,24 @@ def _bound(flops, nbytes):
 
 def _recorder(checks):
     """``record(kernel, shape, ok, err, ms, plain_ms, tol, main=False,
-    flops=0, nbytes=0, library_ms=None)``: print one check with its bound,
-    keep it in ``checks`` (``main`` marks the shape the kernels line
-    reports), raise if it failed."""
+    flops=0, nbytes=0, library_ms=None, library_call=None)``: print one
+    check with its bound, keep it in ``checks`` (``main`` marks the shape
+    the kernels line reports; ``library_call`` names the call behind
+    ``library_ms`` where it is not the plain SDPA), raise if it failed."""
 
     def record(kernel, shape, ok, err, ms, plain_ms, tol, main=False, flops=0.0,
-               nbytes=0, library_ms=None):
+               nbytes=0, library_ms=None, library_call=None):
         bound_ms, bound_by = _bound(flops, nbytes)
         lib = "null" if library_ms is None else f"{library_ms:.4f}"
+        if library_call:
+            lib += f" ({library_call})"
         print(f"check {kernel:15s} {shape:52s} max_abs_err={err:.3e} tol={tol} "
               f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
               f"({bound_by}) library_ms={lib} {'ok' if ok else 'FAIL'}")
         checks.setdefault(kernel, []).append(
             dict(shape=shape, ok=ok, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                  bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                 flops=flops, bytes=nbytes, main=main))
+                 library_call=library_call, flops=flops, bytes=nbytes, main=main))
         if not ok:
             raise AssertionError(f"{kernel} at {shape}: max_abs_err {err} over {tol}")
 
@@ -295,25 +310,73 @@ def _attn_check(torch, record, kernel, shape, fn, plain, reps, plain_reps=1, mai
            main, flops, nbytes + _nbytes(out, lse), lib_ms)
 
 
-def _additive_mask(torch, mask, length, seg=128, keys=None):
+def _token_mask(torch, shape, rows, band, device):
+    """A bf16 additive token mask ``[B, H, length, keys]`` (``shape``) for one
+    SDPA call, filled ``rows`` query rows at a time: ``band(i)`` gives the
+    values ``[B, H, keys]`` of rows ``[i * rows, (i + 1) * rows)``.  Rows are
+    padded to a multiple of 16 elements (the fused kernels' alignment; the
+    view hides the padding).  Built outside any timed region."""
+    b, h, length, keys = shape
+    out = torch.empty((b, h, length, -(-keys // 16) * 16), dtype=torch.bfloat16,
+                      device=device)
+    for i in range(-(-length // rows)):
+        dst = out[:, :, rows * i:rows * (i + 1), :keys]
+        dst.copy_(band(i)[:, :, None, :].expand_as(dst))
+    return out[..., :keys]
+
+
+def _additive_mask(torch, mask, length, seg=128, keys=None, value=0.0):
     """The block mask ``[B, H, n_qt, n_kt]`` (128-row mask rows, blocks of
     ``seg`` keys) expanded to the token mask that one SDPA call takes: bf16
-    ``[B, H, length, keys]`` (``keys`` defaults to ``length``), 0 where a
-    key is selected and -inf elsewhere, rows padded to a multiple of 16
-    elements (the fused kernels' alignment; the view hides the padding).
-    Built in 128-row bands, outside any timed region; 25.8 GB at Wan 480p,
-    30.3 GB at CogVideoX, 57.2 GB at the 14B level 8 (``seg`` 16)."""
-    b, h, n_qt, _ = mask.shape
+    ``[B, H, length, keys]`` (``keys`` defaults to ``length``), ``value``
+    (0, or a pooled level's ``log L`` bias) where a key is selected and -inf
+    elsewhere.  25.8 GB at Wan 480p, 30.3 GB at CogVideoX, 57.2 GB at the
+    14B level 8 (``seg`` 16), 15.2 / 7.6 / 3.8 GB at the CogVideoX pooled
+    levels 2 / 4 / 8."""
+    b, h = mask.shape[:2]
     keys = length if keys is None else keys
-    width = -(-keys // 16) * 16
-    out = torch.empty((b, h, length, width), dtype=torch.bfloat16, device=mask.device)
-    zero = torch.zeros((), dtype=torch.bfloat16, device=mask.device)
+    val = torch.full((), value, dtype=torch.bfloat16, device=mask.device)
     ninf = torch.full((), float("-inf"), dtype=torch.bfloat16, device=mask.device)
-    for i in range(n_qt):
-        cols = mask[:, :, i].repeat_interleave(seg, dim=-1)[..., :keys]
-        band = out[:, :, 128 * i:128 * (i + 1), :keys]
-        band.copy_(torch.where(cols, zero, ninf)[:, :, None, :].expand_as(band))
-    return out[..., :keys]
+
+    def band(i):
+        return torch.where(mask[:, :, i].repeat_interleave(seg, dim=-1)[..., :keys], val, ninf)
+
+    return _token_mask(torch, (b, h, length, keys), 128, band, mask.device)
+
+
+def _multilevel_library(torch, q, records, idx, cnt, length, q_rows):
+    """The library call of the fused multi-level forward (#11): one masked
+    SDPA over the concatenated level keys ``[K; K2; K4; K8]`` (the
+    ``pack_kv_pyramid`` records), every level in one softmax, the token mask
+    0 / ``log L`` / -inf (``multilevel_lists_attention``'s columns).  56.9 GB
+    at CogVideoX, 48.3 GB at Wan 480p; freed with the returned call."""
+    from blade_torch.kernels.ref_attention import lists_to_level_masks
+
+    h, d = q.shape[1], q.shape[3]
+    n_kt = -(-length // 128)
+    keys, vals, col_level, col_block, col_ok, col_val = [], [], [], [], [], []
+    for li, (level, rec) in enumerate(zip((1, 2, 4, 8), records)):
+        seg = 128 // level
+        pooled = rec.view(h, n_kt, 2, seg, d)
+        keys.append(pooled[:, :, 0].reshape(h, n_kt * seg, d))
+        vals.append(pooled[:, :, 1].reshape(h, n_kt * seg, d))
+        cols = torch.arange(n_kt * seg, device=q.device)
+        col_level.append(torch.full_like(cols, li))
+        col_block.append(cols // seg)
+        col_ok.append(cols < -(-length // level))
+        col_val.append(torch.full(cols.shape, math.log(level), device=q.device))
+    kall, vall = torch.cat(keys, dim=1)[None], torch.cat(vals, dim=1)[None]
+    col_level, col_block = torch.cat(col_level), torch.cat(col_block)
+    col_ok, col_val = torch.cat(col_ok), torch.cat(col_val).to(torch.bfloat16)
+    level_mask = lists_to_level_masks(idx, cnt, n_kt)  # [1, H, n_q, 4, n_kt]
+    ninf = torch.full((), float("-inf"), dtype=torch.bfloat16, device=q.device)
+
+    def band(i):
+        return torch.where(level_mask[:, :, i][..., col_level, col_block] & col_ok,
+                           col_val, ninf)
+
+    attn_mask = _token_mask(torch, (1, h, length, kall.shape[2]), q_rows, band, q.device)
+    return lambda: _masked_sdpa(torch, q, kall, vall, attn_mask)
 
 
 def _masked_sdpa(torch, q, k, v, attn_mask):
@@ -581,10 +644,77 @@ def reference_check(torch, dev):
 BWD_REL = 2e-2
 
 
-def _bwd_check(torch, record, gen, kind, shape, q, k, v, mask, bias, reps, main=False):
+def _dense_bwd_library(torch, q, k, v, g_out, scale):
+    """The library calls of the dense backward, each computing dQ, dK and dV
+    in one call, so that its time stands against #5 + #6 and delta: the
+    flash-attention backward op on the saved outputs of its forward and,
+    where the cuDNN backend runs on this card, the cuDNN backward.  Neither
+    takes an LSE cotangent (SDPA returns no LSE).  A constant score bias
+    (the pooled branch's +log gap) leaves P unchanged, so the calls run
+    unbiased on the same q, k, v.  Forwards run here, outside any timed
+    region.  Returns ``{name: call}``."""
+    aten = torch.ops.aten
+    out, lse, cq, ck, mq, mk, seed, offset = aten._scaled_dot_product_flash_attention(
+        q, k, v, 0.0, False, False, scale=scale)[:8]
+    calls = {"flash": lambda: aten._scaled_dot_product_flash_attention_backward(
+        g_out, q, k, v, out, lse, cq, ck, mq, mk, 0.0, False, seed, offset, scale=scale)}
+    try:
+        c_out, c_lse, c_cq, c_ck, c_mq, c_mk, c_seed, c_off = \
+            aten._scaled_dot_product_cudnn_attention(q, k, v, None, True, 0.0, False, False,
+                                                     scale=scale)[:8]
+
+        def cudnn():
+            return aten._scaled_dot_product_cudnn_attention_backward(
+                g_out, q, k, v, c_out, c_lse, c_seed, c_off, None, c_cq, c_ck, c_mq, c_mk,
+                0.0, False, scale=scale)
+
+        cudnn()
+        torch.cuda.synchronize()
+        calls["cudnn"] = cudnn
+    except RuntimeError as e:
+        print(f"cuDNN attention backward not timed on this card: {str(e).splitlines()[0]}")
+    return calls
+
+
+def _efficient_bwd_library(torch, q, k, v, g_out, attn_mask, scale, out=None, lse=None):
+    """The library call of a masked backward: one memory-efficient SDPA
+    backward with the additive token mask ``attn_mask`` (dQ, dK and dV in
+    one call, no LSE cotangent), on the saved outputs of its forward; with
+    ``out`` and ``lse`` given (a pooled level of the fused lane), on those
+    instead, so that p comes from the merged LSE as in the kernels."""
+    aten = torch.ops.aten
+    o, l, seed, offset = aten._scaled_dot_product_efficient_attention(
+        q, k, v, attn_mask, True, 0.0, False, scale=scale)
+    if out is not None:
+        o = out
+        l[..., :lse.shape[-1]] = lse
+    return {"efficient": lambda: aten._scaled_dot_product_efficient_attention_backward(
+        g_out, q, k, v, attn_mask, o, l, seed, offset, 0.0, [True, True, True, False],
+        False, scale=scale)}
+
+
+def _time_with_library(torch, fns, library, reps):
+    """Times of ``fns`` and of the fastest call of ``library`` (``{name:
+    call}`` or None), all in turns (A B B A): ``(times, library_ms, name)``."""
+    if not library:
+        return [_cuda_ms(torch, fn, reps) for fn in fns], None, None
+    names = list(library)
+    times = _cuda_ms_turns(torch, list(fns) + [library[n] for n in names], reps)
+    lib = dict(zip(names, times[len(fns):]))
+    best = min(lib, key=lib.get)
+    if len(lib) > 1:
+        print("library backward calls: " + ", ".join(f"{n} {t:.4f} ms" for n, t in lib.items()))
+    return times[:len(fns)], lib[best], best
+
+
+def _bwd_check(torch, record, gen, kind, shape, q, k, v, mask, bias, reps, main=False,
+               library=None):
     """The dQ and the dK/dV kernels of dense (``mask=None``) or 128-row
     sparse attention against the plain backward, with random ``g_out`` and
-    a non-zero ``g_lse``; a mask's empty rows must get no gradient."""
+    a non-zero ``g_lse``; a mask's empty rows must get no gradient.
+    ``library(g_out)`` gives the library calls (``{name: call}``), timed in
+    turns with both kernels; the fastest stands on both rows, against the
+    pair."""
     from blade_torch.kernels.block_sparse_attn import _backward_cuda, block_sparse_attention
     from blade_torch.kernels.ref_attention import attention_backward_reference
 
@@ -620,15 +750,25 @@ def _bwd_check(torch, record, gen, kind, shape, q, k, v, mask, bias, reps, main=
     # dQ: S, dP, dQ products; dK/dV: S, dP, dV, dK (2 flops a multiply-add)
     work = {"dq": (6.0 * d * pairs, stats + _nbytes(got["dq"])),
             "dkv": (8.0 * d * pairs, stats + _nbytes(got["dk"], got["dv"]))}
-    for part, names in (("dq", ("dq",)), ("dkv", ("dk", "dv"))):
+    # Each kernel timed on its own: delta = rowsum(dO * O) (torch, once a
+    # backward, shared by both kernels) is computed here and timed apart.
+    delta = (g_out.float() * out.float()).sum(dim=-1)
+    delta_ms = _cuda_ms(torch, lambda: (g_out.float() * out.float()).sum(dim=-1), reps)
+    parts = (("dq", ("dq",)), ("dkv", ("dk", "dv")))
+    times, lib_ms, lib_name = _time_with_library(
+        torch, [lambda part=part: _backward_cuda(*args, parts=(part,), delta=delta)
+                for part, _ in parts],
+        library(g_out) if library else None, reps)
+    print(f"delta = rowsum(dO * O) in torch, {shape}: {delta_ms:.4f} ms a backward")
+    for (part, names), ms in zip(parts, times):
         errs = {n: _max_err(got[n], want[n]) for n in names}
         refs = {n: want[n].float().abs().max().item() for n in names}
         per = ", ".join(f"{n} {errs[n]:.2e}/{refs[n]:.2e}" for n in names)
-        ms = _cuda_ms(torch, lambda: _backward_cuda(*args, parts=(part,)), reps)
         record(f"{kind}_{part}", shape, all(errs[n] <= BWD_REL * refs[n] for n in names),
                max(errs.values()), ms, plain_ms,
                f"2e-2*max|ref| per grad (err/max|ref|: {per}; plain = the whole "
-               "backward)", main, *work[part])
+               "backward)", main, *work[part], library_ms=lib_ms,
+               library_call=lib_name and f"{lib_name} backward: dq+dk+dv")
 
 
 def check_backward(torch, dev, checks):
@@ -648,15 +788,22 @@ def check_backward(torch, dev, checks):
     q, k, v = randn(1, h, L, d), randn(1, h, L, d), randn(1, h, L, d)
     kp = (k.float().reshape(1, h, -1, 30, d).mean(3)).to(torch.bfloat16)
     vp = (v.float().reshape(1, h, -1, 30, d).mean(3)).to(torch.bfloat16)
+    scale = 1.0 / math.sqrt(d)
     _bwd_check(torch, record, gen, "dense", "pooled q,dO [1,12,32760,128] k,v [1,12,1092,128]",
-               q, kp, vp, None, math.log(30.0), reps=10, main=True)
+               q, kp, vp, None, math.log(30.0), reps=10, main=True,
+               library=lambda g: _dense_bwd_library(torch, q, kp, vp, g, scale))
     _bwd_check(torch, record, gen, "dense", "dense leg q,k,v,dO [1,12,32760,128]", q, k, v,
-               None, 0.0, reps=2)
+               None, 0.0, reps=2,
+               library=lambda g: _dense_bwd_library(torch, q, k, v, g, scale))
     cfg = C.derive_asa_config(C.WAN_480P)
     mask = asa.compute_mask(q, k, cfg, generator=make_generator(17, dev))
     mask[0, 5, 100] = False  # one forced empty row
+    attn_mask = _additive_mask(torch, mask, L)
     _bwd_check(torch, record, gen, "sparse", f"q,k,v,dO [1,12,32760,128] density "
-               f"{mask.float().mean().item():.4f}", q, k, v, mask, 0.0, reps=5, main=True)
+               f"{mask.float().mean().item():.4f}", q, k, v, mask, 0.0, reps=5, main=True,
+               library=lambda g: _efficient_bwd_library(torch, q, k, v, g, attn_mask, scale))
+    del attn_mask
+    torch.cuda.empty_cache()
 
 
 def _lora_grads(torch, model, lora, inputs, cot, device, **attn_kwargs):
@@ -816,6 +963,7 @@ def check_cog_multilevel(torch, dev, checks):
                main, 0.0, _nbytes(kf, vf, *records))
         q_rows, scale = cfg.multilevel_q_rows, 1.0 / math.sqrt(d)
         pairs = _multilevel_pairs(idx, cnt, length, length, q_rows)
+        library = _multilevel_library(torch, q, records, idx, cnt, length, q_rows)
         _attn_check(torch, record, "multilevel_fwd",
                     f"q [1,{h},{length},{d}] q_rows {q_rows} key share "
                     f"{pairs / (h * float(length) ** 2):.4f}",
@@ -823,7 +971,10 @@ def check_cog_multilevel(torch, dev, checks):
                                                     scale),
                     lambda: multilevel_lists_attention(q, k, v, (idx, cnt), q_rows=q_rows,
                                                        scale=scale),
-                    10, 1, main, 4.0 * d * pairs, _nbytes(q, *records, idx, cnt))
+                    10, 1, main, 4.0 * d * pairs, _nbytes(q, *records, idx, cnt),
+                    library=library)
+        del library
+        torch.cuda.empty_cache()
         print(f"multilevel lists {preset.name}: cap {idx.shape[-1]}, mean counts per level "
               f"{[round(float(c), 2) for c in cnt.float().mean(dim=(0, 1, 2))]}")
 
@@ -1255,10 +1406,14 @@ def check_last_kernels(torch, dev, checks):
     density = mask.float().mean().item()
     _, u_cnt, _ = union_block_lists(mask.reshape(h, n_k, n_k), group=2, bound=bound)
     rows_sum = mask.sum().item()
+    attn_mask = _additive_mask(torch, mask, L)
     _attn_check(torch, record, "sparse_union_fwd",
                 f"q,k,v [1,12,32760,128] density {density:.4f} union bound {bound}", union,
                 lambda: block_masked_attention(q, k, v, mask, block_k=128), 10, 1, True,
-                4.0 * d * _block_pairs(mask, L, L), _nbytes(q, k, v, mask))
+                4.0 * d * _block_pairs(mask, L, L), _nbytes(q, k, v, mask),
+                library=lambda: _masked_sdpa(torch, q, k, v, attn_mask))
+    del attn_mask
+    torch.cuda.empty_cache()
     union_ms = checks["sparse_union_fwd"][-1]["ms"]
     rows_ms = _cuda_ms(torch, lambda: bsa.block_sparse_attention(q, k, v, mask), 10)
     print(f"union vs 128-row sparse forward on the same mask: sparse_union_fwd {union_ms:.3f} ms, "
@@ -1507,24 +1662,29 @@ def check_cog_energy(torch, dev, checks):
                 lambda: block_masked_attention(q, k, v, mask, block_k=128), 5, 1, False,
                 4.0 * d * pairs, _nbytes(q, k, v, mask),
                 library=lambda: _masked_sdpa(torch, q, k, v, attn_mask))
+    scale = 1.0 / math.sqrt(d)
+    _bwd_check(torch, record, gen, "sparse", f"cog q,k,v,dO [1,{h},{length},{d}] density "
+               f"{density:.4f}", q, k, v, mask, 0.0, reps=3,
+               library=lambda g: _efficient_bwd_library(torch, q, k, v, g, attn_mask, scale))
     del attn_mask
     torch.cuda.empty_cache()
-    _bwd_check(torch, record, gen, "sparse", f"cog q,k,v,dO [1,{h},{length},{d}] density "
-               f"{density:.4f}", q, k, v, mask, 0.0, reps=3)
     kp, vp = (pad_to_block_multiple(t, gap).float().reshape(1, h, -1, gap, d).mean(3)
               .to(torch.bfloat16) for t in (k, v))
     _bwd_check(torch, record, gen, "dense",
                f"cog pooled q,dO [1,{h},{length},{d}] k,v [1,{h},{kp.shape[2]},{d}]",
-               q, kp, vp, None, math.log(gap), reps=10)
+               q, kp, vp, None, math.log(gap), reps=10,
+               library=lambda g: _dense_bwd_library(torch, q, kp, vp, g, scale))
     return density
 
 
 def _pooled_bwd_check(torch, record, shape, q, rec, out, lse, g_out, g_lse, delta, mask,
-                      level, lk, heads, reps, main):
+                      level, lk, heads, reps, main, library=False):
     """Both pooled backward kernels of one level (``q, out, g_out [BH, Lq,
     d]``, the level's records, a 128-row mask ``[BH, n_qt, n_kt]``) timed on
     every head and held against the plain pooled backward on the first
-    ``heads`` heads at full sequence length."""
+    ``heads`` heads at full sequence length.  With ``library``, both are
+    timed in turns with one memory-efficient SDPA backward over the level's
+    pooled K/V (its mask ``log L`` / -inf, ``out`` and ``lse`` as given)."""
     from blade_torch.attention.masks import mask_to_block_lists
     from blade_torch.kernels.multilevel_attn import (
         pooled_level_dkv_from_records, pooled_level_dq_from_records)
@@ -1566,17 +1726,29 @@ def _pooled_bwd_check(torch, record, shape, q, rec, out, lse, g_out, g_lse, delt
     nbytes = _nbytes(q, rec, g_out, lse, g_lse, delta, idx, cnt)
     work = {"dq": (6.0 * d * pairs, nbytes + _nbytes(got["dq"])),
             "dkv": (8.0 * d * pairs, nbytes + _nbytes(got["dk"], got["dv"]))}
-    for part, names, fn in (("dq", ("dq",), dq_fn), ("dkv", ("dk", "dv"), dkv_fn)):
+    calls = None
+    if library:
+        attn_mask = _additive_mask(torch, mask[None], lq, seg, pvl, value=math.log(level))
+        pooled = rec.view(bh, n_kt, 2, seg, d)
+        kp, vp = (pooled[:, :, i].reshape(bh, n_kt * seg, d)[None, :, :pvl] for i in (0, 1))
+        calls = _efficient_bwd_library(torch, q[None], kp, vp, g_out[None], attn_mask,
+                                       kw["scale"], out=out[None], lse=lse[None])
+        del attn_mask, kp, vp  # the call holds them until it is freed
+    times, lib_ms, lib_name = _time_with_library(torch, [dq_fn, dkv_fn], calls, reps)
+    del calls
+    torch.cuda.empty_cache()
+    for (part, names), ms in zip((("dq", ("dq",)), ("dkv", ("dk", "dv"))), times):
         errs = {n: _max_err(got[n][hs], want[n]) for n in names}
         refs = {n: want[n].float().abs().max().item() for n in names}
         per = ", ".join(f"{n} {errs[n]:.2e}/{refs[n]:.2e}" for n in names)
         record(f"pooled_level_{part}",
                f"{shape} level {level} key share {pairs / (bh * float(lq) * lk):.4f}",
                all(errs[n] <= BWD_REL * refs[n] for n in names), max(errs.values()),
-               _cuda_ms(torch, fn, reps), plain_ms,
+               ms, plain_ms,
                f"2e-2*max|ref| per grad (err/max|ref|: {per}; plain = the level's whole "
                f"backward on heads 0-{heads - 1}, the kernel on all {bh})",
-               main and level == 2, *work[part])
+               main and level == 2, *work[part], library_ms=lib_ms,
+               library_call=lib_name and f"{lib_name} backward: dq+dk+dv")
 
 
 def _lane_gradient(torch, name, q, k, v, lane_kw, plain_lists, q_rows, heads, step, gen):
@@ -1627,21 +1799,31 @@ def _lane_gradient(torch, name, q, k, v, lane_kw, plain_lists, q_rows, heads, st
 def check_multilevel_backward(torch, dev, checks):
     """Phases 19 and 20: the pooled backward kernels against their plain
     version, then the whole lane's gradient against torch autograd of its
-    plain version, at CogVideoX-5B 480p fused-lane shapes (B=1, H=48, d=64,
+    plain version, with a non-zero LSE cotangent."""
+    from blade_torch.utils.rng import make_generator
+
+    gen = make_generator(2032, dev)
+    lanes = check_cog_multilevel_backward(torch, dev, checks, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lanes.update(check_wan14b_multilevel_backward(torch, dev, checks, gen))
+    return lanes
+
+
+def check_cog_multilevel_backward(torch, dev, checks, gen=None):
+    """Phase 19 at CogVideoX-5B 480p fused-lane shapes (B=1, H=48, d=64,
     L=17776, q_rows 256, lists from the real predictor; p from the merged
-    lse) and at Wan2.1-14B 720p per-level shapes (H=40, d=128, L=75600, a
-    128-row level mask from the real predictor; p from each level's own
-    lse), with a non-zero LSE cotangent."""
+    lse): the pooled backward kernels of levels 2, 4, 8, each timed in turns
+    with one masked SDPA backward over that level, then the fused lane's
+    gradient."""
     from blade_torch import config as C
     from blade_torch.attention import asa
-    from blade_torch.kernels.multilevel_attn import (
-        levels_to_lists, multilevel_from_records, pooled_level_from_records)
-    from blade_torch.attention.masks import mask_to_block_lists
+    from blade_torch.kernels.multilevel_attn import multilevel_from_records
     from blade_torch.kernels.pack import pack_kv_pyramid
     from blade_torch.kernels.ref_attention import lists_to_level_masks
     from blade_torch.utils.rng import make_generator
 
-    gen = make_generator(2032, dev)
+    gen = make_generator(2032, dev) if gen is None else gen
     record = _recorder(checks)
     lanes = {}
 
@@ -1669,17 +1851,36 @@ def check_multilevel_backward(torch, dev, checks):
     for li, level in ((1, 2), (2, 4), (3, 8)):
         _pooled_bwd_check(torch, record, f"cog fused q [1,{h},{length},{d}] q_rows 256",
                           q3, records[li], out3, lse3, g_out, g_lse, delta,
-                          masks[0, :, :, li].contiguous(), level, length, h, 10, True)
+                          masks[0, :, :, li].contiguous(), level, length, h, 10, True,
+                          library=True)
     del records, out, lse, masks
     lanes["cog_fused"] = _lane_gradient(
         torch, f"cog fused [1,{h},{length},{d}] q_rows 256", q, k, v,
         dict(lists=(idx, cnt), q_rows=q_rows), (idx, cnt), q_rows, 4, 8, gen)
-    del q, k, v, idx, cnt
-    gc.collect()
-    torch.cuda.empty_cache()
+    return lanes
 
-    # Wan2.1-14B 720p, the per-level lane: each pooled level against its own
-    # (out_l, lse_l).
+
+def check_wan14b_multilevel_backward(torch, dev, checks, gen=None):
+    """Phase 20: the pooled backward kernels and the per-level lane's
+    gradient at Wan2.1-14B 720p shapes (H=40, d=128, L=75600, a 128-row level
+    mask from the real predictor; p from each level's own lse).  No library
+    call: a level's token mask would take 229 / 114 / 57 GB beside the
+    rest."""
+    from blade_torch import config as C
+    from blade_torch.attention import asa
+    from blade_torch.kernels.multilevel_attn import levels_to_lists, pooled_level_from_records
+    from blade_torch.attention.masks import mask_to_block_lists
+    from blade_torch.kernels.pack import pack_kv_pyramid
+    from blade_torch.utils.rng import make_generator
+
+    gen = make_generator(2034, dev) if gen is None else gen
+    record = _recorder(checks)
+    lanes = {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    # Each pooled level against its own (out_l, lse_l).
     cfg = C.derive_asa_config(C.WAN_14B_720P, "multilevel")
     h, d, length = C.WAN_14B_720P.dit.num_heads, C.WAN_14B_720P.dit.head_dim, cfg.seq_len
     assert (h, d, length) == (40, 128, 75600)
@@ -1918,6 +2119,7 @@ def main():
     check_backward(torch, dev, checks)
     grad_err = gradient_check(torch, dev)
     trained, train_launches = train(torch, dev)
+    gc.collect()
     torch.cuda.empty_cache()
     check_cog_multilevel(torch, dev, checks)
     check_dense_d64(torch, dev, checks)
@@ -2009,7 +2211,7 @@ def main():
             max_abs_err=max(c["max_abs_err"] for c in checks[name]),
             ms=main_check["ms"], plain_ms=main_check["plain_ms"],
             bound_ms=main_check["bound_ms"], bound_by=main_check["bound_by"],
-            library_ms=main_check["library_ms"],
+            library_ms=main_check["library_ms"], library_call=main_check["library_call"],
             shape=main_check["shape"], checks=checks[name]))
     print(json.dumps({"kernels": kernels}))
     print(_nvidia_smi())

@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
-"""Forward-kernel times of the PyTorch port on one NVIDIA GPU: ``chip_smoke.py``'s
-forward-kernel checks alone (phases 3, 9 and 15: each kernel against its
-plain version at the main-path shapes of Wan2.1-1.3B 480p and CogVideoX-5B
-480p, and the "max" predictor, union-gathered sparse and head-relayout
-kernels; phase 12 at Wan2.1-14B 720p: the dense kernel as its predictor,
-the three pooled levels and the sparse kernel on the level-1 lists; the
-dense kernel as the CogVideoX pooled branch of phase 18).
+"""Kernel times of the PyTorch port on one NVIDIA GPU: ``chip_smoke.py``'s
+kernel checks alone, each kernel against its plain version and, where one
+PyTorch call computes the same function, timed in turns with that call.
+By default: the forward checks (phases 3, 9 and 15: the Wan2.1-1.3B 480p and
+CogVideoX-5B 480p main-path shapes, the "max" predictor, union-gathered
+sparse and head-relayout kernels; phase 12 at Wan2.1-14B 720p: the dense
+kernel as its predictor, the three pooled levels and the sparse kernel on
+the level-1 lists; the dense kernel as the CogVideoX pooled branch of phase
+18) and the backward checks (``check_backward``, phase 6: the dense and
+sparse backward kernels at Wan 480p; ``check_cog_energy``, phase 18: the
+same at CogVideoX d = 64, with its sparse forward and ``pack_kv``).
 
     python3 scripts/torch_kernel_times.py [PHASE ...]
 
-``PHASE`` names ``chip_smoke`` check functions (default: all of the above),
-e.g. ``check_kernels check_dense_d64`` for the Wan and CogVideoX dense and
-pack checks alone.
+``PHASE`` names ``chip_smoke`` check functions, e.g. ``check_kernels
+check_dense_d64`` for the Wan and CogVideoX dense and pack checks alone,
+``check_backward check_cog_energy`` for the dense backward at its three
+shapes, or ``check_cog_multilevel_backward`` for the pooled backward
+kernels of phase 19.
 
 Imports ``blade_torch`` from ``PYTHONPATH`` first, so pointing
 ``PYTHONPATH`` at another checkout times that checkout's kernels with this
@@ -21,6 +27,7 @@ skipped.  Prints one JSON line per check (CUDA-event means) and the card's
 name and power limit.
 """
 
+import gc
 import importlib.util
 import json
 import os
@@ -44,19 +51,22 @@ def main():
     dev, checks = torch.device("cuda"), {}
     names = sys.argv[1:] or ["check_kernels", "check_dense_d64", "check_wan14b_pooled",
                              "check_cog_pooled_fwd", "check_cog_multilevel",
-                             "check_last_kernels"]
+                             "check_last_kernels", "check_backward", "check_cog_energy"]
     for name in names:
         phase = getattr(smoke, name)
         try:
             phase(torch, dev, checks)
         except ImportError as e:
             print(f"{phase.__name__}: not in this package ({e})", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
     package = os.path.dirname(blade_torch.__file__)
     for kernel, rows in checks.items():
         for c in rows:
             print(json.dumps({"kernel": kernel, "shape": c["shape"], "ms": c["ms"],
                               "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                               "library_ms": c["library_ms"],
+                              "library_call": c.get("library_call"),
                               "max_abs_err": c["max_abs_err"], "package": package}))
     print(smoke._nvidia_smi(), flush=True)
 

@@ -23,6 +23,7 @@ import torch
 from blade_torch.kernels import _build
 from blade_torch.kernels.block_sparse_attn import (
     _dense_cuda,
+    attention_backward,
     block_sparse_attention,
     flash_attention,
     flash_attention_wide_v,
@@ -392,22 +393,31 @@ def test_kernels_are_forward_only(dev):
 BWD_REL = 2e-2
 
 
-@pytest.mark.parametrize("lq,lk,d,bias,masked", [
-    (300, 300, 128, 0.7, True),
-    (520, 260, 128, 0.0, True),
-    (300, 300, 128, 0.7, False),
-    (1000, 37, 128, math.log(30.0), False),
-    (260, 200, 64, 0.25, True),
-    (130, 70, 64, 0.5, False),
+@pytest.mark.parametrize("lq,lk,d,bias,masked,heads", [
+    (300, 300, 128, 0.7, True, (2, 2)),
+    (520, 260, 128, 0.0, True, (2, 2)),
+    (300, 300, 128, 0.7, False, (2, 2)),
+    (1000, 37, 128, math.log(30.0), False, (2, 2)),
+    (260, 200, 64, 0.25, True, (2, 2)),
+    (130, 70, 64, 0.5, False, (2, 2)),
+    # The dense pair: the key counts of the pooled branches (Wan 480p at d
+    # 128, +log 30; CogVideoX at d 64, +log 15), lq a multiple of neither
+    # 64 nor 128, and 300 heads: several waves of CTAs for both kernels.
+    (1000, 1092, 128, math.log(30.0), False, (1, 3)),
+    (1000, 1186, 64, math.log(15.0), False, (1, 3)),
+    (333, 37, 64, 0.0, False, (2, 2)),
+    (200, 450, 128, 0.1, False, (2, 2)),
+    (700, 600, 128, 0.0, False, (4, 75)),
+    (300, 520, 64, 0.3, False, (4, 75)),
 ])
-def test_backward_kernels_match_plain(dev, lq, lk, d, bias, masked):
+def test_backward_kernels_match_plain(dev, lq, lk, d, bias, masked, heads):
     gen = torch.Generator(device=dev).manual_seed(lq * 7 + lk + d)
-    q, k, v = (_rand(gen, 2, 2, n, d, dev=dev).requires_grad_(True) for n in (lq, lk, lk))
-    g_out = _rand(gen, 2, 2, lq, d, dev=dev)
-    g_lse = torch.randn((2, 2, lq), generator=gen, device=dev)
+    q, k, v = (_rand(gen, *heads, n, d, dev=dev).requires_grad_(True) for n in (lq, lk, lk))
+    g_out = _rand(gen, *heads, lq, d, dev=dev)
+    g_lse = torch.randn((*heads, lq), generator=gen, device=dev)
     mask = None
     if masked:
-        mask = torch.rand((2, 2, -(-lq // 128), -(-lk // 128)), generator=gen,
+        mask = torch.rand((*heads, -(-lq // 128), -(-lk // 128)), generator=gen,
                           device=dev) > 0.5
         mask[..., -1] = True  # the ragged tail block
         mask[0, 1, 1] = False  # an empty row: never exp2 of its -1e30 lse
@@ -417,14 +427,40 @@ def test_backward_kernels_match_plain(dev, lq, lk, d, bias, masked):
     dq, dk, dv = torch.autograd.grad((out, lse), (q, k, v), (g_out, g_lse))
     torch.cuda.synchronize()
     assert [_build.KERNELS[n].launches for n in names] == [b + 1 for b in before]
-    want = attention_backward_reference(
-        q.detach(), k.detach(), v.detach(), out.detach(), lse.detach(), g_out, g_lse,
-        block_mask=mask, block_k=128, scale=1.0 / math.sqrt(d), bias=bias)
+    q, k, v, out, lse = (t.detach() for t in (q, k, v, out, lse))
+    scale = 1.0 / math.sqrt(d)
+    want = attention_backward_reference(q, k, v, out, lse, g_out, g_lse, block_mask=mask,
+                                        block_k=128, scale=scale, bias=bias)
     for got, ref in zip((dq, dk, dv), want):
         assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
         assert _err(got, ref) <= BWD_REL * ref.float().abs().max().item()
     if masked:
         assert dq[0, 1, 128:256].float().abs().max().item() == 0.0
+    else:
+        # A row given the empty-row LSE gets p = 0: no gradient, and nothing
+        # of it in dK / dV.
+        lse[0, 0, lq // 2] = NEG_INF
+        got = attention_backward(q, k, v, out, lse, g_out, g_lse, None, scale=scale,
+                                 bias=bias)
+        want = attention_backward_reference(q, k, v, out, lse, g_out, g_lse, scale=scale,
+                                            bias=bias)
+        for g, ref in zip(got, want):
+            assert torch.isfinite(g.float()).all()
+            assert _err(g, ref) <= BWD_REL * ref.float().abs().max().item()
+        assert got[0][0, 0, lq // 2].float().abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("lq,lk,d", [(1000, 1092, 128), (700, 1186, 64), (333, 300, 128)])
+def test_dense_backward_kernels_are_deterministic(dev, lq, lk, d):
+    """No atomics: two calls give bit-identical dQ, dK and dV."""
+    gen = torch.Generator(device=dev).manual_seed(lq + lk + d)
+    q, k, v, g_out = (_rand(gen, 2, 3, n, d, dev=dev) for n in (lq, lk, lk, lq))
+    g_lse = torch.randn((2, 3, lq), generator=gen, device=dev)
+    out, lse = flash_attention(q, k, v)
+    first = attention_backward(q, k, v, out, lse, g_out, g_lse, None, scale=d ** -0.5)
+    second = attention_backward(q, k, v, out, lse, g_out, g_lse, None, scale=d ** -0.5)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_norm_rope_backward_is_vjp_of_plain(dev):
