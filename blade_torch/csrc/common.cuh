@@ -18,6 +18,7 @@ typedef __nv_bfloat16 bf16;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float NEG_INF_LSE = -1e30f;  // lse of a row that attends to nothing
+constexpr float EMPTY_LSE = -1e29f;    // a backward treats rows at or below it as empty
 
 __device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);

@@ -5,15 +5,16 @@
 //   * _dense_dq_kernel   -> bt_attn_dense_dq    (flash_attention backward)
 //   * _dense_dkv_kernel  -> bt_attn_dense_dkv
 //   * _sparse_dq_kernel  -> bt_attn_sparse_dq   (block_sparse_attention
-//     backward, walking each mask row's ascending list of pack_kv records)
+//     backward at seg_rows 128, walking each mask row's ascending list of
+//     128-key blocks)
 //   * _sparse_dkv_kernel -> bt_attn_sparse_dkv  (walking the TRANSPOSED lists:
 //     for each 128-key block, the ascending 128-row query blocks that chose it)
 //
 // Semantics kept from the TPU kernels: the forward's scores and softmax are
 // recomputed from the saved natural-log LSE in base 2,
 //   p  = exp2(s * scale * log2e - (lse - bias) * log2e),
-//   ds = p * (dO . v^T + g_lse - delta),   delta = rowsum(dO * O) (computed
-//        outside, in torch, as JAX computes it in XLA),
+//   ds = p * (dO . v^T + g_lse - delta),   delta = rowsum(dO * O) (the
+//        caller's: bt_attn_delta, attn_delta.cu, where JAX computes it in XLA),
 //   dq = scale * ds . k,  dk = scale * ds^T . q,  dv = p^T . dO,
 // with p and ds rounded to bf16 before each product, as the TPU kernels feed
 // the MXU.  dQ and dK/dV are separate kernels, so no atomics and the result
@@ -24,46 +25,89 @@
 //
 // What bounds it on the H100: tensor-core math, five products of q.k pairs
 // x d where the forward has two (dQ: S, dP, dQ; dK/dV: S, dP, dV, dK; the
-// dense pair recomputes S and dP once each: seven in all), plus the
-// recomputed exp2.  At the Wan 480p dense leg (32760^2, d 128, 12 heads)
-// the pair's seven products take 23.3 ms at 989 TFLOP/s; at its pooled
-// branch (1092 keys) 0.778 ms; at the CogVideoX pooled branch (d 64, 48
-// heads, 1186 keys) 0.917 ms.
+// pair recomputes S and dP once each: seven in all), plus the recomputed
+// exp2.  At the Wan 480p dense leg (32760^2, d 128, 12 heads) the pair's
+// seven products take 23.3 ms at 989 TFLOP/s; at its pooled branch (1092
+// keys) 0.778 ms; on the Wan 480p energy mask (density 0.21) 4.93 ms.
 //
-// The dense pair (dense_dq_kernel, dense_dkv_kernel) is the dense forward's
-// design (flash_attn.cu): a CTA of 384 threads whose producer warpgroup
-// issues TMA loads through 3-D tensor maps over [bh, l, d] (a box past a
-// head's rows comes back zero-filled) into a ring of 4 stages with full and
-// empty mbarriers, and two consumer warpgroups of 64 rows on wgmma, their
-// registers raised with setmaxnreg; the consumers are in
-// flash_bwd_wgmma.cuh.
+// One design for the dense and the sparse pair, the dense forward's
+// (flash_attn.cu): a CTA of 384 threads whose producer warpgroup issues TMA
+// loads through 3-D tensor maps over the natural [bh, l, d] tensors (a box
+// past a head's rows comes back zero-filled) into a ring of stages with
+// full and empty mbarriers, and two consumer warpgroups of 64 rows on
+// wgmma, their registers raised with setmaxnreg; the consumers are in
+// flash_bwd_wgmma.cuh.  The two pairs differ only in the tiles a CTA walks
+// (a Walk: DenseWalk streams every tile, ListWalk the tiles of the 128-row
+// blocks listed for the CTA's block, read in place, so the sparse backward
+// needs no pack_kv records):
 //   * dK/dV: a CTA owns 128 keys with K and V resident; a stage brings 64
 //     query rows of Q and dO and, by 1-D TMA boxes over the flattened
 //     [bh * lq] statistics (a box starts on a 16-byte boundary, so up to 3
 //     rows early), the rows' raw lse, delta and g_lse; a second producer
-//     warp turns those into lse2 / rest in the stage, so the consumers read
-//     two float2 a column pair.  A consumer runs a tile's four products
-//     back to back: at 240 registers a thread, a second tile's S^T and dP^T
-//     beside dK, dV and the bf16 fragments spilled, and the two warpgroups
-//     already interleave on the tensor cores.
+//     warp, walking the same tiles, turns those into lse2 / rest in the
+//     stage, so the consumers read two float2 a column pair.  A consumer
+//     runs a tile's four products back to back: at 240 registers a thread,
+//     a second tile's S^T and dP^T beside dK, dV and the bf16 fragments
+//     spilled, and the two warpgroups already interleave on the tensor cores.
 //   * dQ: a CTA owns 128 query rows with Q and dO resident; a stage brings
 //     a tile of K and V (64 keys at d = 128, 128 at d = 64: S, dP and dQ
 //     in registers); the next tile's S and dP are issued before the current
 //     tile's dQ += dS K.
-// The sparse pair (attn_dq_kernel, attn_dkv_kernel) is still the first
-// design: mma.sync m16n8k16 with 64-row CTAs and synchronous 16-byte loads
-// into shared memory (no cp.async / TMA pipeline, no wgmma); its tiles
-// (dq_tile, dkv_tile) are in flash_bwd_tile.cuh, shared with
-// pooled_level_bwd.cu.
+// A sparse CTA with an empty list runs no tile, waits on no barrier and
+// writes zero gradients.  Sparse CTAs run their blocks last first: the
+// energy lane forces the last two mask rows (and so the last two entries
+// of every transposed list) to every block, and a long list launched in
+// the last wave sets the kernel's tail (gather_attn.cu does the same).
 #include "flash_bwd_wgmma.cuh"
 
 namespace bt {
 namespace bwd {
 
-// ---- dense dK/dV: warp-specialised wgmma + TMA --------------------------------
+// ---- walks: the tiles a CTA streams ------------------------------------------
+//
+// walk.at(bh, blockIdx.x) gives the CTA's 128-row block of the resident
+// side (`block`), the count of TILE-row tiles it streams from the other
+// side (`tiles`) and where tile `it` starts there (`start(it)`); only the
+// last tile may reach past `len`, the streamed side's rows.
+
+template <int TILE>
+struct DenseWalk {
+  int len;
+  struct Cta {
+    int block, tiles;
+    __device__ int start(int it) const { return it * TILE; }
+  };
+  __device__ Cta at(int, int x) const { return {x, (len + TILE - 1) / TILE}; }
+};
+
+// lists [bh, n_blocks, max_len]: each resident block's ascending list of
+// streamed 128-row blocks; counts [bh, n_blocks].
+template <int TILE>
+struct ListWalk {
+  static constexpr int TPB = 128 / TILE;  // tiles a listed block
+  const int* lists;
+  const int* counts;
+  int n_blocks, max_len, len;
+  struct Cta {
+    int block, tiles;
+    const int* lst;
+    __device__ int start(int it) const { return __ldg(lst + it / TPB) * 128 + it % TPB * TILE; }
+  };
+  __device__ Cta at(int bh, int x) const {
+    const int b = n_blocks - 1 - x;  // last first
+    const size_t r = (size_t)bh * n_blocks + b;
+    const int cnt = __ldg(counts + r);
+    const int* lst = lists + r * max_len;
+    // Only the last listed block can be the streamed side's ragged end.
+    const int tail = cnt > 0 ? min(TPB, (len - __ldg(lst + cnt - 1) * 128 + TILE - 1) / TILE) : 0;
+    return {b, cnt > 0 ? (cnt - 1) * TPB + tail : 0, lst};
+  }
+};
+
+// ---- dK/dV ----------------------------------------------------------------------
 
 template <int D>
-struct DenseDkvTile {
+struct DkvTile {
   static constexpr int KEYS = 128;                 // keys a CTA, 64 a consumer warpgroup
   static constexpr int BQ = 64;                    // query rows a ring stage
   static constexpr int THREADS = 384;              // producer + 2 consumer warpgroups
@@ -88,20 +132,22 @@ struct DenseDkvTile {
                 "TMA destinations on 128 bytes");
 };
 
-// One CTA: keys [128 blockIdx.x, + 128) of head blockIdx.y against every
-// query row.  Maps: q, dout [bh, lq, D] (box 64 x 64), k, v [bh, lk, D]
-// (box 64 x 128), all 128-byte swizzled; lse, delta, glse over [bh lq]
-// (box 68).  Producer warpgroup: thread 0 issues every load (a stage's
-// tiles and raw statistics complete its `raw` barrier); warp 1 turns each
-// stage's raw statistics into lse2 / rest and its lanes arrive on `full`.
-template <int D>
-__global__ void __launch_bounds__(DenseDkvTile<D>::THREADS, 1)
-dense_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
-                 const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
-                 const __grid_constant__ CUtensorMap tl, const __grid_constant__ CUtensorMap td,
-                 const __grid_constant__ CUtensorMap tg, bf16* __restrict__ dk_out,
-                 bf16* __restrict__ dv_out, int lq, int lk, float c, float scale, float bias) {
-  using T = DenseDkvTile<D>;
+// One CTA: the 128 keys of block walk.at(...).block of head blockIdx.y
+// against the query tiles of its walk.  Maps: q, dout [bh, lq, D] (box 64 x
+// 64), k, v [bh, lk, D] (box 64 x 128), all 128-byte swizzled; lse, delta,
+// glse over [bh lq] (box 68).  Producer warpgroup: thread 0 issues every
+// load (a stage's tiles and raw statistics complete its `raw` barrier);
+// warp 1 turns each stage's raw statistics into lse2 / rest and its lanes
+// arrive on `full`.
+template <int D, class Walk>
+__global__ void __launch_bounds__(DkvTile<D>::THREADS, 1)
+dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+           const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+           const __grid_constant__ CUtensorMap tl, const __grid_constant__ CUtensorMap td,
+           const __grid_constant__ CUtensorMap tg, bf16* __restrict__ dk_out,
+           bf16* __restrict__ dv_out, int lq, int lk, float c, float scale, float bias,
+           const Walk walk) {
+  using T = DkvTile<D>;
   constexpr int BQ = T::BQ, STAGES = T::STAGES, RAW = T::RAW;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = smem_u32(smem_raw);
@@ -116,8 +162,9 @@ dense_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   const uint32_t kv_full = bar, raw = bar + 8, full = raw + 8 * STAGES;
   const uint32_t empty = full + 8 * STAGES;
 
-  const int bh = blockIdx.y, key0 = blockIdx.x * T::KEYS;
-  const int n_tiles = (lq + BQ - 1) / BQ;
+  const int bh = blockIdx.y;
+  const auto cta = walk.at(bh, blockIdx.x);
+  const int key0 = cta.block * T::KEYS, n_tiles = cta.tiles;
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
     for (int s = 0; s < STAGES; ++s) {
@@ -132,7 +179,7 @@ dense_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   if (threadIdx.x < 128) {
     // ---- producer warpgroup ----
     setmaxnreg_dec<24>();  // 128 x 24 + 256 x 240 = 384 x 168, the launch budget
-    if (threadIdx.x == 0) {
+    if (threadIdx.x == 0 && n_tiles > 0) {
       mbar_expect_tx(kv_full, 2 * T::KV_BYTES);
 #pragma unroll
       for (int cb = 0; cb < D / 64; ++cb) {
@@ -141,7 +188,7 @@ dense_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       }
       int stage = 0, phase = 0;
       for (int it = 0; it < n_tiles; ++it) {
-        const int row0 = it * BQ;
+        const int row0 = cta.start(it);  // read before the wait: its latency hides there
         mbar_wait(empty + 8 * stage, phase ^ 1);
         const uint32_t f = raw + 8 * stage, st = st_r + stage * T::STAT_BYTES;
         mbar_expect_tx(f, 2 * T::QT_BYTES + 3 * T::RAW_BOX * 4);
@@ -160,12 +207,13 @@ dense_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
         }
       }
     } else if (threadIdx.x >= 32 && threadIdx.x < 64) {
-      // Statistics warp: rows lane and lane + 32 of each tile.  Rows past
-      // lq brought the next head's values (or zeros past the last head).
+      // Statistics warp: rows lane and lane + 32 of each tile, the tiles the
+      // loads walk.  Rows past lq brought the next head's values (or zeros
+      // past the last head).
       const int lane = threadIdx.x & 31;
       int stage = 0, phase = 0;
       for (int it = 0; it < n_tiles; ++it) {
-        const int row0 = it * BQ, off = (bh * lq + row0) & 3;
+        const int row0 = cta.start(it), off = (bh * lq + row0) & 3;
         mbar_wait(raw + 8 * stage, phase);
         float* st = stats + stage * T::STAT_FLOATS;
 #pragma unroll
@@ -187,19 +235,21 @@ dense_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     float dk[D / 2], dv[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
-    mbar_wait(kv_full, 0);
-    consume_dkv<D, BQ, STAGES>(dk, dv, k_s + cw * 64 * 128, v_s + cw * 64 * 128, q_r, do_r,
-                               stats + 3 * RAW, T::STAT_FLOATS, raw, full, empty, n_tiles, c,
-                               k0 < lk, k1 < lk);
+    if (n_tiles > 0) {
+      mbar_wait(kv_full, 0);
+      consume_dkv<D, BQ, STAGES>(dk, dv, k_s + cw * 64 * 128, v_s + cw * 64 * 128, q_r, do_r,
+                                 stats + 3 * RAW, T::STAT_FLOATS, raw, full, empty, n_tiles,
+                                 c, k0 < lk, k1 < lk);
+    }
     store_acc_rows<D>(dk, dk_out + (size_t)bh * lk * D, k0, k1, lk, scale);
     store_acc_rows<D>(dv, dv_out + (size_t)bh * lk * D, k0, k1, lk, 1.f);
   }
 }
 
-// ---- dense dQ: warp-specialised wgmma + TMA -----------------------------------
+// ---- dQ ---------------------------------------------------------------------------
 
 template <int D>
-struct DenseDqTile {
+struct DqTile {
   static constexpr int ROWS = 128;                  // query rows a CTA, 64 a consumer warpgroup
   static constexpr int BN = D == 128 ? 64 : 128;    // keys a ring stage (registers: dq, S, dP)
   static constexpr int THREADS = 384;
@@ -213,17 +263,17 @@ struct DenseDqTile {
   static_assert(8 * (1 + 2 * STAGES) <= BAR_BYTES, "barrier space");
 };
 
-// One CTA: query rows [128 blockIdx.x, + 128) of head blockIdx.y against
-// every key.  Maps: q, dout [bh, lq, D] (box 64 x 128), k, v [bh, lk, D]
-// (box 64 x BN).
-template <int D>
-__global__ void __launch_bounds__(DenseDqTile<D>::THREADS, 1)
-dense_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
-                const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                const float* __restrict__ glse, bf16* __restrict__ dq_out, int lq, int lk,
-                float c, float scale, float bias) {
-  using T = DenseDqTile<D>;
+// One CTA: the 128 query rows of block walk.at(...).block of head
+// blockIdx.y against the key tiles of its walk.  Maps: q, dout [bh, lq, D]
+// (box 64 x 128), k, v [bh, lk, D] (box 64 x BN).
+template <int D, class Walk>
+__global__ void __launch_bounds__(DqTile<D>::THREADS, 1)
+dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+          const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          const float* __restrict__ glse, bf16* __restrict__ dq_out, int lq, int lk, float c,
+          float scale, float bias, const Walk walk) {
+  using T = DqTile<D>;
   constexpr int BN = T::BN, STAGES = T::STAGES;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -234,8 +284,9 @@ dense_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   // Barriers: Q/dO, then full and empty of each stage.
   const uint32_t q_full = bar, full = bar + 8, empty = full + 8 * STAGES;
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * T::ROWS;
-  const int n_tiles = (lk + BN - 1) / BN;
+  const int bh = blockIdx.y;
+  const auto cta = walk.at(bh, blockIdx.x);
+  const int q0 = cta.block * T::ROWS, n_tiles = cta.tiles;
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int s = 0; s < STAGES; ++s) {
@@ -249,7 +300,7 @@ dense_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   if (threadIdx.x < 128) {
     // ---- producer warpgroup: one thread issues every load ----
     setmaxnreg_dec<40>();  // 128 x 40 + 256 x 232 = 384 x 168
-    if (threadIdx.x == 0) {
+    if (threadIdx.x == 0 && n_tiles > 0) {
       mbar_expect_tx(q_full, 2 * T::Q_BYTES);
 #pragma unroll
       for (int cb = 0; cb < D / 64; ++cb) {
@@ -258,13 +309,14 @@ dense_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       }
       int stage = 0, phase = 0;
       for (int it = 0; it < n_tiles; ++it) {
+        const int kt = cta.start(it);  // read before the wait: its latency hides there
         mbar_wait(empty + 8 * stage, phase ^ 1);
         const uint32_t f = full + 8 * stage;
         mbar_expect_tx(f, 2 * T::KV_BYTES);
 #pragma unroll
         for (int cb = 0; cb < D / 64; ++cb) {
-          tma_load_3d(k_r + stage * T::KV_BYTES + cb * BN * 128, &tk, f, cb * 64, it * BN, bh);
-          tma_load_3d(v_r + stage * T::KV_BYTES + cb * BN * 128, &tv, f, cb * 64, it * BN, bh);
+          tma_load_3d(k_r + stage * T::KV_BYTES + cb * BN * 128, &tk, f, cb * 64, kt, bh);
+          tma_load_3d(v_r + stage * T::KV_BYTES + cb * BN * 128, &tv, f, cb * 64, kt, bh);
         }
         if (++stage == STAGES) {
           stage = 0;
@@ -286,10 +338,15 @@ dense_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     float dq[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
-    mbar_wait(q_full, 0);
-    consume_dq<D, BN, STAGES>(dq, q_s + cw * 64 * 128, do_s + cw * 64 * 128, k_r, v_r, full,
-                              empty, n_tiles, c, l0, l1, rr0, rr1,
-                              [lk](int it, int) { return lk - it * BN; });
+    if (n_tiles > 0) {
+      const int last = lk - cta.start(n_tiles - 1);  // live keys of the last tile
+      mbar_wait(q_full, 0);
+      consume_dq<D, BN, STAGES>(dq, q_s + cw * 64 * 128, do_s + cw * 64 * 128, k_r, v_r, full,
+                                empty, n_tiles, c, l0, l1, rr0, rr1,
+                                [n_tiles, last](int it, int) {
+                                  return it + 1 < n_tiles ? BN : last;
+                                });
+    }
     store_acc_rows<D>(dq, dq_out + h0 * D, r0, r1, lq, scale);
   }
 }
@@ -302,16 +359,16 @@ static bool stat_maps(CUtensorMap* tl, CUtensorMap* td, CUtensorMap* tg, const v
          make_map_f32(tg, glse, n, box);
 }
 
-template <int D>
-static int launch_dense_dq(const void* q, const void* k, const void* v, const void* dout,
-                           const void* lse, const void* delta, const void* glse, void* dq,
-                           int bh, int lq, int lk, float scale, float bias,
-                           cudaStream_t stream) {
-  using T = DenseDqTile<D>;
+template <int D, class Walk>
+static int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+                     const void* lse, const void* delta, const void* glse, void* dq, int bh,
+                     int lq, int lk, float scale, float bias, const Walk& walk,
+                     cudaStream_t stream) {
+  using T = DqTile<D>;
   static bool smem_set = false;
   if (!smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        dense_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+        dq_kernel<D, Walk>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
     if (e != cudaSuccess) return (int)e;
     smem_set = true;
   }
@@ -320,23 +377,23 @@ static int launch_dense_dq(const void* q, const void* k, const void* v, const vo
       !make_map(&tk, k, bh, lk, D, T::BN) || !make_map(&tv, v, bh, lk, D, T::BN))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((lq + T::ROWS - 1) / T::ROWS, bh);
-  dense_dq_kernel<D><<<grid, T::THREADS, T::SMEM, stream>>>(
+  dq_kernel<D, Walk><<<grid, T::THREADS, T::SMEM, stream>>>(
       tq, tdo, tk, tv, static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<const float*>(glse), static_cast<bf16*>(dq), lq, lk, scale * LOG2E, scale,
-      bias);
+      bias, walk);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-static int launch_dense_dkv(const void* q, const void* k, const void* v, const void* dout,
-                            const void* lse, const void* delta, const void* glse, void* dk,
-                            void* dv, int bh, int lq, int lk, float scale, float bias,
-                            cudaStream_t stream) {
-  using T = DenseDkvTile<D>;
+template <int D, class Walk>
+static int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+                      const void* lse, const void* delta, const void* glse, void* dk, void* dv,
+                      int bh, int lq, int lk, float scale, float bias, const Walk& walk,
+                      cudaStream_t stream) {
+  using T = DkvTile<D>;
   static bool smem_set = false;
   if (!smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        dense_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+        dkv_kernel<D, Walk>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
     if (e != cudaSuccess) return (int)e;
     smem_set = true;
   }
@@ -346,155 +403,9 @@ static int launch_dense_dkv(const void* q, const void* k, const void* v, const v
       !stat_maps(&tl, &td, &tg, lse, delta, glse, bh, lq, T::RAW_BOX))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((lk + T::KEYS - 1) / T::KEYS, bh);
-  dense_dkv_kernel<D><<<grid, T::THREADS, T::SMEM, stream>>>(
+  dkv_kernel<D, Walk><<<grid, T::THREADS, T::SMEM, stream>>>(
       tq, tdo, tk, tv, tl, td, tg, static_cast<bf16*>(dk), static_cast<bf16*>(dv), lq, lk,
-      scale * LOG2E, scale, bias);
-  return (int)cudaGetLastError();
-}
-
-// ---- sparse: mma.sync ---------------------------------------------------------
-
-// k holds pack_kv records [BH, n_kt, 2, 128, D]; lists/counts select the key
-// blocks of each 128-row mask row.
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-attn_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ dout, const float* __restrict__ lse,
-               const float* __restrict__ delta, const float* __restrict__ glse,
-               const int* __restrict__ lists, const int* __restrict__ counts,
-               bf16* __restrict__ dq, int lq, int lk, int n_qt, int max_k, float scale,
-               float bias) {
-  constexpr int LD = D + 8;
-  __shared__ __align__(16) bf16 ks[BN * LD];
-  __shared__ __align__(16) bf16 vs[BN * LD];
-  const int bh = blockIdx.y, q0 = blockIdx.x * BM;
-  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  const float c = scale * LOG2E;
-
-  DqState<D> st;
-  init_dq<D>(st, q + (size_t)bh * lq * D, dout + (size_t)bh * lq * D, lse + (size_t)bh * lq,
-             delta + (size_t)bh * lq, glse + (size_t)bh * lq, r0, r1, lq, bias);
-
-  const int n_kt = (lk + 127) / 128;
-  const int row = q0 / 128;
-  const int cnt = counts[bh * n_qt + row];
-  const int* lst = lists + ((size_t)bh * n_qt + row) * max_k;
-  const bf16* rec = k + (size_t)bh * n_kt * 256 * D;
-  for (int j = 0; j < cnt; ++j) {
-    const int blk = lst[j];
-    for (int half = 0; half < 2; ++half) {
-      const int nvalid = min(BN, lk - (blk * 128 + half * 64));
-      if (nvalid <= 0) continue;  // same for every thread of the CTA
-      __syncthreads();
-      load_rows<D>(ks, rec + ((size_t)blk * 256 + half * 64) * D, D, nvalid);
-      load_rows<D>(vs, rec + ((size_t)blk * 256 + 128 + half * 64) * D, D, nvalid);
-      __syncthreads();
-      dq_tile<D>(st, ks, vs, prefix_valid(nvalid), c);
-    }
-  }
-
-  store_dq<D>(st, dq + (size_t)bh * lq * D, r0, r1, lq, scale);
-}
-
-// The query blocks of this key block's transposed list (t_lists [BH, n_kt,
-// max_q], t_counts [BH, n_kt]); the CTA covers 64 keys, half of one
-// 128-key block.
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-attn_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                const float* __restrict__ glse, const int* __restrict__ t_lists,
-                const int* __restrict__ t_counts, bf16* __restrict__ dk_out,
-                bf16* __restrict__ dv_out, int lq, int lk, int n_kt, int max_q,
-                float scale, float bias) {
-  using S = DkvSmem<D>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + S::TILE;
-  bf16* qs = vs + S::TILE;
-  bf16* dos = qs + S::TILE;
-  float* lse2s = reinterpret_cast<float*>(dos + S::TILE);
-  float* rests = lse2s + 64;
-
-  const int bh = blockIdx.y, key0 = blockIdx.x * BM;
-  if (key0 >= lk) return;  // the ragged last block's empty half
-  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
-  const int k0 = key0 + warp * 16 + g, k1 = k0 + 8;
-  const float c = scale * LOG2E;
-
-  const int nkeys = min(BM, lk - key0);
-  load_rows<D>(ks, k + ((size_t)bh * lk + key0) * D, D, nkeys);
-  load_rows<D>(vs, v + ((size_t)bh * lk + key0) * D, D, nkeys);
-
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-  const bf16* qb = q + (size_t)bh * lq * D;
-  const bf16* db = dout + (size_t)bh * lq * D;
-  const float* lse_b = lse + (size_t)bh * lq;
-  const float* delta_b = delta + (size_t)bh * lq;
-  const float* glse_b = glse + (size_t)bh * lq;
-  const bool kv0 = k0 < lk, kv1 = k1 < lk;
-
-  const int blk = key0 / 128;
-  const int cnt = t_counts[bh * n_kt + blk];
-  const int* lst = t_lists + ((size_t)bh * n_kt + blk) * max_q;
-  for (int j = 0; j < cnt; ++j) {
-    const int qblk = lst[j];
-    for (int half = 0; half < 2; ++half) {
-      const int row0 = qblk * 128 + half * 64;
-      if (row0 >= lq) continue;  // same for every thread of the CTA
-      __syncthreads();
-      load_query_tile<D>(qs, dos, lse2s, rests, qb, db, lse_b, delta_b, glse_b, row0, lq,
-                         bias);
-      __syncthreads();
-      dkv_tile<D>(dk, dv, ks, vs, qs, dos, lse2s, rests, kv0, kv1, c);
-    }
-  }
-
-  store_dkv<D>(dk, dv, dk_out + (size_t)bh * lk * D, dv_out + (size_t)bh * lk * D, k0, k1,
-               kv0, kv1, scale);
-}
-
-template <int D>
-static int launch_sparse_dq(const void* q, const void* kv, const void* dout, const void* lse,
-                            const void* delta, const void* glse, const void* lists,
-                            const void* counts, void* dq, int bh, int lq, int lk, int n_qt,
-                            int max_k, float scale, float bias, cudaStream_t stream) {
-  const dim3 grid((lq + BM - 1) / BM, bh);
-  attn_dq_kernel<D><<<grid, NTHREADS, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(kv),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const float*>(glse),
-      static_cast<const int*>(lists), static_cast<const int*>(counts), static_cast<bf16*>(dq),
-      lq, lk, n_qt, max_k, scale, bias);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
-static int launch_sparse_dkv(const void* q, const void* k, const void* v, const void* dout,
-                             const void* lse, const void* delta, const void* glse,
-                             const void* t_lists, const void* t_counts, void* dk, void* dv,
-                             int bh, int lq, int lk, int n_kt, int max_q, float scale,
-                             float bias, cudaStream_t stream) {
-  constexpr size_t smem = DkvSmem<D>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(attn_dkv_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(2 * n_kt, bh);
-  attn_dkv_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const float*>(glse), static_cast<const int*>(t_lists),
-      static_cast<const int*>(t_counts), static_cast<bf16*>(dk), static_cast<bf16*>(dv), lq,
-      lk, n_kt, max_q, scale, bias);
+      scale * LOG2E, scale, bias, walk);
   return (int)cudaGetLastError();
 }
 
@@ -515,11 +426,11 @@ BT_API int bt_attn_dense_dq(const void* q, const void* k, const void* v, const v
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bad_dims(bh, lq, lk)) return (int)cudaErrorInvalidValue;
   if (d == 128)
-    return launch_dense_dq<128>(q, k, v, dout, lse, delta, glse, dq, bh, lq, lk, scale, bias,
-                                st);
+    return launch_dq<128>(q, k, v, dout, lse, delta, glse, dq, bh, lq, lk, scale, bias,
+                          DenseWalk<DqTile<128>::BN>{lk}, st);
   if (d == 64)
-    return launch_dense_dq<64>(q, k, v, dout, lse, delta, glse, dq, bh, lq, lk, scale, bias,
-                               st);
+    return launch_dq<64>(q, k, v, dout, lse, delta, glse, dq, bh, lq, lk, scale, bias,
+                         DenseWalk<DqTile<64>::BN>{lk}, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -531,38 +442,42 @@ BT_API int bt_attn_dense_dkv(const void* q, const void* k, const void* v, const 
   using namespace bt::bwd;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bad_dims(bh, lq, lk)) return (int)cudaErrorInvalidValue;
+  const DenseWalk<DkvTile<128>::BQ> walk{lq};
   if (d == 128)
-    return launch_dense_dkv<128>(q, k, v, dout, lse, delta, glse, dk, dv, bh, lq, lk, scale,
-                                 bias, st);
+    return launch_dkv<128>(q, k, v, dout, lse, delta, glse, dk, dv, bh, lq, lk, scale, bias,
+                           walk, st);
   if (d == 64)
-    return launch_dense_dkv<64>(q, k, v, dout, lse, delta, glse, dk, dv, bh, lq, lk, scale,
-                                bias, st);
+    return launch_dkv<64>(q, k, v, dout, lse, delta, glse, dk, dv, bh, lq, lk, scale, bias,
+                          walk, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// q, dout [bh, lq, d]; kv_packed [bh, ceil(lk/128), 2, 128, d] (bt_pack_kv);
-// lse, delta, glse [bh, lq] f32; lists [bh, n_qt, max_k] ascending key
-// blocks, counts [bh, n_qt] int32 (the forward's lists) -> dq [bh, lq, d].
-BT_API int bt_attn_sparse_dq(const void* q, const void* kv_packed, const void* dout,
+// q, k, v, dout and the statistics as bt_attn_dense_dq (K/V read in place);
+// lists [bh, n_qt, max_k] ascending key blocks, counts [bh, n_qt] int32 (the
+// forward's lists, n_qt = ceil(lq/128)) -> dq [bh, lq, d].
+BT_API int bt_attn_sparse_dq(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, const void* glse,
                              const void* lists, const void* counts, void* dq, int bh, int lq,
                              int lk, int d, int n_qt, int max_k, float scale, float bias,
                              void* stream) {
   using namespace bt::bwd;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bad_dims(bh, lq, lk) || n_qt != (lq + 127) / 128) return (int)cudaErrorInvalidValue;
+  if (bad_dims(bh, lq, lk) || n_qt != (lq + 127) / 128 || max_k <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int* li = static_cast<const int*>(lists);
+  const int* co = static_cast<const int*>(counts);
   if (d == 128)
-    return launch_sparse_dq<128>(q, kv_packed, dout, lse, delta, glse, lists, counts, dq, bh,
-                                 lq, lk, n_qt, max_k, scale, bias, st);
+    return launch_dq<128>(q, k, v, dout, lse, delta, glse, dq, bh, lq, lk, scale, bias,
+                          ListWalk<DqTile<128>::BN>{li, co, n_qt, max_k, lk}, st);
   if (d == 64)
-    return launch_sparse_dq<64>(q, kv_packed, dout, lse, delta, glse, lists, counts, dq, bh,
-                                lq, lk, n_qt, max_k, scale, bias, st);
+    return launch_dq<64>(q, k, v, dout, lse, delta, glse, dq, bh, lq, lk, scale, bias,
+                         ListWalk<DqTile<64>::BN>{li, co, n_qt, max_k, lk}, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// q, dout [bh, lq, d]; k, v [bh, lk, d]; stats as above; t_lists
-// [bh, n_kt, max_q] ascending query blocks per key block, t_counts
-// [bh, n_kt] int32 (lists of the transposed mask) -> dk, dv [bh, lk, d].
+// As bt_attn_sparse_dq with t_lists [bh, n_kt, max_q] ascending query blocks
+// per key block, t_counts [bh, n_kt] int32 (lists of the transposed mask,
+// n_kt = ceil(lk/128)) -> dk, dv [bh, lk, d].
 BT_API int bt_attn_sparse_dkv(const void* q, const void* k, const void* v, const void* dout,
                               const void* lse, const void* delta, const void* glse,
                               const void* t_lists, const void* t_counts, void* dk, void* dv,
@@ -570,12 +485,15 @@ BT_API int bt_attn_sparse_dkv(const void* q, const void* k, const void* v, const
                               float scale, float bias, void* stream) {
   using namespace bt::bwd;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bad_dims(bh, lq, lk) || n_kt != (lk + 127) / 128) return (int)cudaErrorInvalidValue;
+  if (bad_dims(bh, lq, lk) || n_kt != (lk + 127) / 128 || max_q <= 0)
+    return (int)cudaErrorInvalidValue;
+  const ListWalk<DkvTile<128>::BQ> walk{static_cast<const int*>(t_lists),
+                                        static_cast<const int*>(t_counts), n_kt, max_q, lq};
   if (d == 128)
-    return launch_sparse_dkv<128>(q, k, v, dout, lse, delta, glse, t_lists, t_counts, dk, dv,
-                                  bh, lq, lk, n_kt, max_q, scale, bias, st);
+    return launch_dkv<128>(q, k, v, dout, lse, delta, glse, dk, dv, bh, lq, lk, scale, bias,
+                           walk, st);
   if (d == 64)
-    return launch_sparse_dkv<64>(q, k, v, dout, lse, delta, glse, t_lists, t_counts, dk, dv,
-                                 bh, lq, lk, n_kt, max_q, scale, bias, st);
+    return launch_dkv<64>(q, k, v, dout, lse, delta, glse, dk, dv, bh, lq, lk, scale, bias,
+                          walk, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,6 @@
-// The flash-attention backward tiles shared by flash_attn_bwd.cu and
-// pooled_level_bwd.cu.  The forward's scores and softmax are recomputed
+// The flash-attention backward tiles of pooled_level_bwd.cu (the pooled
+// segments' backward, still on mma.sync; the 128-row backward is on wgmma
+// in flash_attn_bwd.cu).  The forward's scores and softmax are recomputed
 // from the saved natural-log LSE in base 2,
 //   p  = exp2(s * scale * log2e - (lse - bias) * log2e),
 //   ds = p * (dO . v^T + g_lse - delta),   delta = rowsum(dO * O),
@@ -21,9 +22,6 @@
 
 namespace bt {
 namespace bwd {
-
-// Rows whose LSE is at or below this are empty (the forward writes -1e30).
-constexpr float EMPTY_LSE = -1e29f;
 
 // rows [0, nvalid) of a 64 x W tile (row stride `ld` elements) into shared
 // memory rows of stride W + 8; rows past nvalid are zero-filled.

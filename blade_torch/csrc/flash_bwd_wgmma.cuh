@@ -1,7 +1,8 @@
 // The consumer side of the warp-specialised flash-attention backward, dQ
 // and dK/dV (flash_attn_bwd.cu), on wgmma.  Written against ring stages and
-// barriers only, so that a producer that gathers its tiles (the sparse
-// backward's row lists) can feed the same consumers.
+// barriers only: the dense backward's producers, which stream every tile,
+// and the sparse backward's, which walk the mask's lists, feed the same
+// consumers.
 //
 // Function (the TPU kernels'): the forward's scores are recomputed and p
 // taken from the saved LSE in base 2, with each row's statistics
@@ -27,7 +28,6 @@
 // warp on its empty barrier.
 #pragma once
 
-#include "flash_bwd_tile.cuh"
 #include "flash_wgmma.cuh"
 
 namespace bt {

@@ -6,10 +6,12 @@ Counterpart of ``blade/kernels/block_sparse_attn.py``'s public API:
 kernel of ``csrc/flash_attn.cu``, the block-sparse forward the gather kernel
 of ``csrc/gather_attn.cu`` over ``pack_kv``'s records (both bf16 in, f32
 accumulate, ``(out, lse)`` out), and the backwards those of
-``csrc/flash_attn_bwd.cu``: dQ and dK/dV in two kernels each, no atomics
-(the dense pair on ``wgmma`` with a TMA ring, the block-sparse pair still
-on ``mma.sync``); CPU tensors take the plain versions in
-``kernels/ref_attention.py``.
+``csrc/flash_attn_bwd.cu``: dQ and dK/dV in two kernels each, no atomics,
+both pairs on ``wgmma`` fed by a TMA ring (the block-sparse pair walks the
+mask's lists and its transpose's, reading K/V, Q and dO in place), after
+``delta = rowsum(dO * O)`` in one pass (``attention_delta``,
+``csrc/attn_delta.cu``); CPU tensors take the plain versions in
+``kernels/ref_attention.py`` (delta's is ``_delta_reference``).
 
 ``flash_attention`` and ``block_sparse_attention`` are differentiable
 through one ``torch.autograd.Function``, the counterpart of JAX's
@@ -53,7 +55,8 @@ from blade_torch.kernels.ref_attention import (
 )
 
 __all__ = ["flash_attention", "flash_attention_wide_v", "block_sparse_attention",
-           "attention_backward", "KV_BLOCK", "QGROUP", "SPARSE_UNION"]
+           "attention_backward", "attention_delta", "backward_lists", "KV_BLOCK", "QGROUP",
+           "SPARSE_UNION"]
 
 QGROUP = 2  # mask rows sharing one union-gathered query tile
 # Union gathering pays only where adjacent mask rows select overlapping
@@ -85,12 +88,16 @@ _dense_dkv_kernel = CudaKernel(
     replaces="blade/kernels/block_sparse_attn.py:184",  # _dense_dkv_kernel
 )
 _sparse_dq_kernel = CudaKernel(
-    "sparse_dq", "bt_attn_sparse_dq", "pppppppppiiiiiiffp", source=_BWD_SOURCE,
+    "sparse_dq", "bt_attn_sparse_dq", "ppppppppppiiiiiiffp", source=_BWD_SOURCE,
     replaces="blade/kernels/block_sparse_attn.py:646",  # _sparse_dq_kernel
 )
 _sparse_dkv_kernel = CudaKernel(
     "sparse_dkv", "bt_attn_sparse_dkv", "pppppppppppiiiiiiffp", source=_BWD_SOURCE,
     replaces="blade/kernels/block_sparse_attn.py:758",  # _sparse_dkv_kernel
+)
+_delta_kernel = CudaKernel(
+    "attn_delta", "bt_attn_delta", "pppiip", source="blade_torch/csrc/attn_delta.cu",
+    replaces="blade/kernels/block_sparse_attn.py:1043",  # delta in _bwd_call (XLA)
 )
 
 
@@ -192,18 +199,63 @@ def _sparse_union_forward(q, k, v, mask, scale, bias, bound):
     return out, lse
 
 
+def _aligned(t):
+    """``t`` contiguous and 16-byte aligned (copied only when it is not):
+    autograd may hand over a cotangent that is a view at any offset."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _delta_reference(out, g_out):
+    """Plain ``delta = rowsum(dO * O)`` in f32 (JAX's expression in
+    ``_bwd_call``)."""
+    return (g_out.float() * out.float()).sum(dim=-1)
+
+
+def attention_delta(out, g_out):
+    """``delta = rowsum(g_out * out)`` in f32, ``[..., L, d] -> [..., L]``:
+    the row statistic every flash-attention backward takes.  CUDA tensors
+    (bf16, d in (64, 128)) launch ``bt_attn_delta``; CPU tensors take the
+    plain version."""
+    if not out.is_cuda:
+        return _delta_reference(out, g_out)
+    if out.shape != g_out.shape:
+        raise ValueError(f"attention_delta: out {tuple(out.shape)} and g_out "
+                         f"{tuple(g_out.shape)} differ")
+    d = out.shape[-1]
+    if d not in (64, 128):
+        raise ValueError(f"attention_delta: the kernel takes d in (64, 128), got {d}")
+    out, g_out = _aligned(out), _aligned(g_out)
+    check_inputs("attention_delta", out, g_out, dtype=torch.bfloat16)
+    delta = torch.empty(out.shape[:-1], dtype=torch.float32, device=out.device)
+    _delta_kernel(out.data_ptr(), g_out.data_ptr(), delta.data_ptr(), delta.numel(), d,
+                  cuda_stream(out.device))
+    return delta
+
+
+def backward_lists(mask):
+    """The sparse backward's lists of a block mask ``[BH, n_qt, n_kt]``:
+    ``(idx, cnt)`` of the mask (each query block's key blocks, for dQ) and
+    ``(t_idx, t_cnt)`` of its transpose (each key block's query blocks, for
+    dK/dV), int32, contiguous; ``masks.mask_to_block_lists`` of each, as
+    JAX's ``_bwd_call`` takes them."""
+    idx, cnt = mask_to_block_lists(mask)
+    t_idx, t_cnt = mask_to_block_lists(mask.transpose(-1, -2))
+    return tuple(t.contiguous() for t in (idx, cnt, t_idx, t_cnt))
+
+
 def _backward_cuda(q, k, v, out, lse, g_out, g_lse, mask, scale, bias,
-                   parts=("dq", "dkv"), delta=None):
-    """The four backward kernels: ``delta = rowsum(dO * O)`` in torch (as
-    JAX computes it in XLA) unless the caller passes it, then dQ and dK/dV,
-    each in its own kernel.  ``parts`` picks which of the two kernels run
-    (to time one alone); the gradients of a kernel left out come back
-    ``None``."""
+                   parts=("dq", "dkv"), delta=None, lists=None):
+    """The backward kernels: ``delta = rowsum(dO * O)`` (``attention_delta``)
+    unless the caller passes it, then dQ and dK/dV, each in its own kernel;
+    a mask's ``backward_lists`` unless the caller passes them.  ``parts``
+    picks which of the two kernels run (to time one alone); the gradients of
+    a kernel left out come back ``None``."""
     g_out = g_out.to(q.dtype).contiguous()
     g_lse = g_lse.float().contiguous()
     check_inputs("attention backward", q, k, v, out, g_out, dtype=torch.bfloat16)
     if delta is None:
-        delta = (g_out.float() * out.float()).sum(dim=-1)
+        delta = attention_delta(out, g_out)
     check_inputs("attention backward", lse, delta, g_lse, dtype=torch.float32)
     b, h, lq, d = q.shape
     lk = k.shape[2]
@@ -225,15 +277,14 @@ def _backward_cuda(q, k, v, out, lse, g_out, g_lse, mask, scale, bias,
                               float(scale), float(bias), stream)
         return dq, dk, dv
     n_qt, n_kt = mask.shape[-2:]
-    m = mask.reshape(b * h, n_qt, n_kt)
+    if lists is None:
+        lists = backward_lists(mask.reshape(b * h, n_qt, n_kt))
+    idx, cnt, t_idx, t_cnt = lists
     if dq is not None:
-        idx, cnt = (t.contiguous() for t in mask_to_block_lists(m))
-        kv = pack_kv(k.reshape(b * h, lk, d), v.reshape(b * h, lk, d))
-        _sparse_dq_kernel(q.data_ptr(), kv.data_ptr(), g_out.data_ptr(), *stats,
+        _sparse_dq_kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), g_out.data_ptr(), *stats,
                           idx.data_ptr(), cnt.data_ptr(), dq.data_ptr(), b * h, lq, lk, d,
                           n_qt, idx.shape[-1], float(scale), float(bias), stream)
     if dk is not None:
-        t_idx, t_cnt = (t.contiguous() for t in mask_to_block_lists(m.transpose(-1, -2)))
         _sparse_dkv_kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), g_out.data_ptr(),
                            *stats, t_idx.data_ptr(), t_cnt.data_ptr(), dk.data_ptr(),
                            dv.data_ptr(), b * h, lq, lk, d, n_kt, t_idx.shape[-1],

@@ -52,7 +52,12 @@ import torch
 
 from blade_torch.attention.masks import mask_to_block_lists
 from blade_torch.kernels._build import CudaKernel, check_inputs, cuda_stream
-from blade_torch.kernels.block_sparse_attn import attention_backward, block_sparse_attention
+from blade_torch.kernels.block_sparse_attn import (
+    _aligned,
+    attention_backward,
+    attention_delta,
+    block_sparse_attention,
+)
 from blade_torch.kernels.pack import KV_BLOCK, pack_kv_pyramid
 from blade_torch.kernels.ref_attention import (
     lists_to_level_masks,
@@ -247,12 +252,6 @@ def pooled_level_dkv_from_records(q, records, out, lse, g_out, g_lse, delta, t_i
     return dk, dv
 
 
-def _aligned(t):
-    """``t`` contiguous and 16-byte aligned (copied only when it is not)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def pooled_level_backward(q, records, out, lse, g_out, g_lse, block_mask, *, level: int,
                           scale: float, pooled_valid_len: int, delta=None):
     """The backward of one pooled level (JAX's ``gather_backward`` at
@@ -266,8 +265,6 @@ def pooled_level_backward(q, records, out, lse, g_out, g_lse, block_mask, *, lev
     if tuple(block_mask.shape) != (q.shape[0], -(-q.shape[1] // KV_BLOCK), n_kt):
         raise ValueError(f"block_mask {tuple(block_mask.shape)} does not match q "
                          f"{tuple(q.shape)} and {n_kt} key blocks")
-    if delta is None:
-        delta = (g_out.float() * out.float()).sum(dim=-1)
     if not q.is_cuda:
         k_pool, v_pool = _split_records(records, n_kt, seg)
         return pooled_level_backward_reference(
@@ -277,6 +274,8 @@ def pooled_level_backward(q, records, out, lse, g_out, g_lse, block_mask, *, lev
     # merge's per-level lse cotangents); the kernels take 16-byte aligned rows.
     dtype = q.dtype
     q, out, g_out = (_aligned(t.to(dtype)) for t in (q, out, g_out))
+    if delta is None:
+        delta = attention_delta(out, g_out)
     lse, g_lse, delta = (_aligned(t.float()) for t in (lse, g_lse, delta))
     kw = dict(level=level, scale=scale, pooled_valid_len=pooled_valid_len)
     lists = (t.contiguous() for t in mask_to_block_lists(block_mask))
@@ -337,7 +336,7 @@ class _FusedMultilevel(torch.autograd.Function):
         if ctx.q_rows != KV_BLOCK:  # each mask row onto its 128-row tiles
             masks = masks.repeat_interleave(ctx.q_rows // KV_BLOCK, dim=2)[:, :, :n_qt]
         g_out = g_out.to(q.dtype)
-        delta = (g_out.float() * out.float()).sum(dim=-1)
+        delta = attention_delta(out, g_out)
         dq, dk, dv = attention_backward(q, k, v, out, lse, g_out, g_lse, masks[:, :, :, 0],
                                         scale=ctx.scale, delta=delta)
         dq = dq.float()

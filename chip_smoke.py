@@ -28,19 +28,25 @@ no result):
    weights and replayed masks;
 6. the four backward kernels against the plain backward at main-path
    shapes (the pooled branch, the dense leg, and the sparse branch with a
-   mask from the real predictor plus one forced empty row), with a non-zero
-   LSE cotangent, each timed on its own (``delta = rowsum(dO * O)``, the
-   torch pass both share, timed apart) and in turns with one library
-   backward computing dQ, dK and dV (the dense pair: the faster of the
-   flash-attention and the cuDNN SDPA backward ops; the sparse pair: the
-   memory-efficient SDPA backward with the additive token mask);
+   mask from the real predictor plus one forced empty row and one key
+   block no row selected, both of which must get exactly zero gradient),
+   with a non-zero LSE cotangent, each timed on its own and in turns with
+   one library backward computing dQ, dK and dV (the dense pair: the faster
+   of the flash-attention and the cuDNN SDPA backward ops; the sparse pair:
+   the memory-efficient SDPA backward with the additive token mask); the
+   delta kernel (``delta = rowsum(dO * O)``, which both share) against its
+   plain version and timed apart; the sparse backward also timed whole, as
+   the port runs it (delta, the lists, the transposed lists, both kernels);
 7. a small gradient check, the training twin of phase 5: LoRA gradients of
    one loss with kernels (bf16, card) against plain versions (f32, CPU);
 8. the training path: ``blade_torch.cli.train.main`` at full width
    (``wan-1.3b-480p``, 30 layers, random weights, ASA, remat), three TDM
    steps with k_step 2 and CFG 5; finite losses, moved adapters, a frozen
-   base, a checkpoint at step 2, and exactly 2 x 30 launches of each
-   backward kernel a step (the fake and the generator backward passes);
+   base, a checkpoint at step 2, and exact launch counts a step: 2 x 30 of
+   each backward kernel (the fake and the generator backward passes), 4 x
+   30 of the delta kernel (the sparse and the pooled branch of each), and
+   10 x 30 of ``pack_kv`` (the forwards only: the sparse backward reads K/V
+   in place);
 9. the kernels of the CogVideoX path against their plain versions at
    CogVideoX-5B 480p shapes (B=1, H=48, d=64, L=17776, q_rows 256, lists
    from the real predictor): the multi-level kernel, the pyramid pack, the
@@ -108,7 +114,7 @@ no result):
    from the real predictor): the dense forward on the pooled branch (1186
    pooled keys, +log 15 bias), the sparse forward, ``pack_kv``, the sparse
    backward and the dense backward on the pooled branch, each backward pair
-   timed in turns with its library backward as in phase 6;
+   timed in turns with its library backward, and delta, as in phase 6;
 19. the pooled backward kernels (the multilevel backward) against their
    plain version at CogVideoX-5B 480p fused-lane shapes (p from the merged
    lse), levels 2, 4 and 8, each pair timed in turns with one
@@ -126,14 +132,15 @@ no result):
 22. one full-width LoRA gradient of CogVideoX-5B 480p on its serving lane
    (42 blocks, fused multilevel, q_rows 256, remat): finite, timed, peak
    memory, and exactly a layer one each of ``sparse_dq``, ``sparse_dkv``
-   and ``pack_kv``, three each of the pooled backward kernels, and two each
-   of the forward's predictor, pyramid pack and multi-level kernel;
+   and the delta kernel (shared by the four passes), three each of the
+   pooled backward kernels, two each of the forward's predictor, pyramid
+   pack and multi-level kernel, and no ``pack_kv``;
 23. the CogVideoX training path: ``blade_torch.cli.train.main`` at full
    width (``--family cogvideox``, 42 blocks, random weights, ASA energy
    lane, remat, the DDPM family) for three TDM steps at the CLI defaults
    (k_step 2, CFG 3.5, lambda_reg 0.5); finite losses, moved adapters, a
    frozen base, exact launch counts a step (11 DiT forwards of 42 layers,
-   two backward passes).
+   two backward passes: 11 x 42 ``pack_kv``, 4 x 42 delta).
 
 The second-to-last line is the card's ``name, power.limit``; before it, one
 JSON line with the per-kernel results (``launches`` sums the eight paths,
@@ -570,7 +577,7 @@ def serve(torch, dev):
     assert launches["dense_fwd"] >= 2 * 2 * L * steps, launches
     # serving runs no backward kernel and none of the multilevel lane's
     assert all(launches[n] > 0 for n in SERVE_KERNELS), launches
-    assert all(launches[n] == 0 for n in BACKWARD_KERNELS), launches
+    assert all(launches[n] == 0 for n in BACKWARD_KERNELS + ("attn_delta",)), launches
     assert launches["multilevel_fwd"] == launches["pack_kv_pyramid"] == 0, launches
 
     # One dense forward on the same weights for comparison.
@@ -707,14 +714,40 @@ def _time_with_library(torch, fns, library, reps):
     return times[:len(fns)], lib[best], best
 
 
+def _delta_check(torch, record, bsa, shape, out, g_out, reps, main):
+    """``attention_delta`` (``bt_attn_delta``) against its plain version on
+    one backward's ``out`` and ``g_out``; returns ``delta``.  A package
+    without the kernel (an older checkout timed through
+    ``scripts/torch_kernel_times.py``) gets the torch expression, timed and
+    printed, and no check."""
+    def plain():
+        return (g_out.float() * out.float()).sum(dim=-1)
+
+    plain_ms = _cuda_ms(torch, plain, reps)
+    fn = getattr(bsa, "attention_delta", None)
+    if fn is None:
+        print(f"delta = rowsum(dO * O) in torch, {shape}: {plain_ms:.4f} ms a backward")
+        return plain()
+    got, want = fn(out, g_out), plain()
+    tol = 1e-5 * (out.float() * g_out.float()).abs().sum(-1)
+    record("attn_delta", f"out,dO {shape}", bool(((got - want).abs() <= tol).all()),
+           _max_err(got, want), _cuda_ms(torch, lambda: fn(out, g_out), reps), plain_ms,
+           f"1e-5*sum|dO*O| a row (smallest {tol.min().item():.2e}; f32 sums in another "
+           "order)", main, 2.0 * out.numel(), _nbytes(out, g_out, got))
+    return got
+
+
 def _bwd_check(torch, record, gen, kind, shape, q, k, v, mask, bias, reps, main=False,
                library=None):
     """The dQ and the dK/dV kernels of dense (``mask=None``) or 128-row
     sparse attention against the plain backward, with random ``g_out`` and
-    a non-zero ``g_lse``; a mask's empty rows must get no gradient.
-    ``library(g_out)`` gives the library calls (``{name: call}``), timed in
-    turns with both kernels; the fastest stands on both rows, against the
-    pair."""
+    a non-zero ``g_lse``; a mask's empty rows and the key blocks no row
+    selected must get no gradient.  ``library(g_out)`` gives the library
+    calls (``{name: call}``), timed in turns with both kernels; the fastest
+    stands on both rows, against the pair.  Delta is checked and timed apart
+    (``_delta_check``); the sparse backward is also timed whole, as the port
+    runs it (delta, the lists and transposed lists, both kernels)."""
+    from blade_torch.kernels import block_sparse_attn as bsa
     from blade_torch.kernels.block_sparse_attn import _backward_cuda, block_sparse_attention
     from blade_torch.kernels.ref_attention import attention_backward_reference
 
@@ -736,12 +769,18 @@ def _bwd_check(torch, record, gen, kind, shape, q, k, v, mask, bias, reps, main=
     for name in got:
         assert torch.isfinite(got[name].float()).all(), (kind, shape, name)
     if mask is not None:
-        empty = (~mask.reshape(-1, mask.shape[-1]).any(-1)).nonzero()
+        flat = mask.reshape(-1, *mask.shape[-2:])
+        empty = (~flat.any(-1)).nonzero()
         assert empty.numel(), "the forced empty row is missing"
-        for row in empty[:, 0].tolist():
-            bh, qb = divmod(row, mask.shape[-2])
+        for bh, qb in empty.tolist():
             rows = got["dq"].reshape(-1, q.shape[2], d)[bh, qb * 128:(qb + 1) * 128]
             assert rows.float().abs().max().item() == 0.0, "empty row has a gradient"
+        unselected = (~flat.any(-2)).nonzero()
+        assert unselected.numel(), "the forced unselected key block is missing"
+        for bh, kb in unselected.tolist():
+            for name in ("dk", "dv"):
+                keys = got[name].reshape(-1, k.shape[2], d)[bh, kb * 128:(kb + 1) * 128]
+                assert keys.float().abs().max().item() == 0.0, f"unselected block has {name}"
     plain_ms = _cuda_ms(torch, plain, 1)
     lq, lk = q.shape[2], k.shape[2]
     pairs = (q.shape[0] * q.shape[1] * float(lq) * lk if mask is None
@@ -750,16 +789,28 @@ def _bwd_check(torch, record, gen, kind, shape, q, k, v, mask, bias, reps, main=
     # dQ: S, dP, dQ products; dK/dV: S, dP, dV, dK (2 flops a multiply-add)
     work = {"dq": (6.0 * d * pairs, stats + _nbytes(got["dq"])),
             "dkv": (8.0 * d * pairs, stats + _nbytes(got["dk"], got["dv"]))}
-    # Each kernel timed on its own: delta = rowsum(dO * O) (torch, once a
-    # backward, shared by both kernels) is computed here and timed apart.
-    delta = (g_out.float() * out.float()).sum(dim=-1)
-    delta_ms = _cuda_ms(torch, lambda: (g_out.float() * out.float()).sum(dim=-1), reps)
+    # Each kernel timed on its own: delta = rowsum(dO * O) (once a backward,
+    # shared by both kernels) is computed here and timed apart.
+    delta = _delta_check(torch, record, bsa, f"[{','.join(map(str, q.shape))}]", out, g_out,
+                         reps, main)
+    # The sparse kernels timed on lists built once (an older package builds
+    # them, and packs K/V for dQ, inside each call).
+    kw = {"delta": delta}
+    if mask is not None and hasattr(bsa, "backward_lists"):
+        kw["lists"] = bsa.backward_lists(mask.reshape(-1, *mask.shape[-2:]))
     parts = (("dq", ("dq",)), ("dkv", ("dk", "dv")))
     times, lib_ms, lib_name = _time_with_library(
-        torch, [lambda part=part: _backward_cuda(*args, parts=(part,), delta=delta)
+        torch, [lambda part=part: _backward_cuda(*args, parts=(part,), **kw)
                 for part, _ in parts],
         library(g_out) if library else None, reps)
-    print(f"delta = rowsum(dO * O) in torch, {shape}: {delta_ms:.4f} ms a backward")
+    if mask is not None:
+        m = mask.reshape(-1, *mask.shape[-2:])
+        steps = {"whole": lambda: _backward_cuda(*args),
+                 "lists": lambda: bsa.mask_to_block_lists(m),
+                 "transposed lists": lambda: bsa.mask_to_block_lists(m.transpose(-1, -2))}
+        print(f"sparse backward as the port runs it, {shape}: " + ", ".join(
+            f"{n} {_cuda_ms(torch, fn, reps):.4f} ms" for n, fn in steps.items()) +
+            "; delta, dq and dkv as recorded")
     for (part, names), ms in zip(parts, times):
         errs = {n: _max_err(got[n], want[n]) for n in names}
         refs = {n: want[n].float().abs().max().item() for n in names}
@@ -772,8 +823,9 @@ def _bwd_check(torch, record, gen, kind, shape, q, k, v, mask, bias, reps, main=
 
 
 def check_backward(torch, dev, checks):
-    """Phase 6: the four backward kernels against the plain backward at
-    main-path shapes, with random ``g_out`` and a non-zero ``g_lse``."""
+    """Phase 6: the four backward kernels and delta against their plain
+    versions at main-path shapes, with random ``g_out`` and a non-zero
+    ``g_lse``."""
     from blade_torch import config as C
     from blade_torch.attention import asa
     from blade_torch.utils.rng import make_generator
@@ -798,6 +850,7 @@ def check_backward(torch, dev, checks):
     cfg = C.derive_asa_config(C.WAN_480P)
     mask = asa.compute_mask(q, k, cfg, generator=make_generator(17, dev))
     mask[0, 5, 100] = False  # one forced empty row
+    mask[0, 6, :, 40] = False  # one key block that no row selected
     attn_mask = _additive_mask(torch, mask, L)
     _bwd_check(torch, record, gen, "sparse", f"q,k,v,dO [1,12,32760,128] density "
                f"{mask.float().mean().item():.4f}", q, k, v, mask, 0.0, reps=5, main=True,
@@ -896,10 +949,16 @@ def train(torch, dev):
     for rec in history:
         assert math.isfinite(rec["loss_fake"]) and math.isfinite(rec["loss_du"]), rec
     layers = 30
+    args = cli.get_args(argv + ["--output_dir", "unused"])
+    fwd = _tdm_forwards(args.k_step, args.cfg, args.lambda_reg) * layers
     for i, counts in enumerate(per_step):
         print(f"train step {i} launches " + json.dumps(counts))
         for name in BACKWARD_KERNELS:  # the fake and the generator backward
             assert counts[name] == 2 * layers, (i, name, counts[name])
+        # delta once a backward pass (sparse and pooled branch) of each
+        # layer; only the forwards pack (the sparse backward reads K/V in place)
+        assert counts["attn_delta"] == 4 * layers, (i, counts["attn_delta"])
+        assert counts["pack_kv"] == fwd, (i, counts["pack_kv"], fwd)
         assert all(counts[n] > 0 for n in SERVE_KERNELS), (i, counts)
     # the adapters moved (b starts at zero); the frozen base is bit-unchanged
     moved_g = sum(state.lora_g[k].abs().sum().item() for k in state.lora_g if k.endswith(".b"))
@@ -909,7 +968,6 @@ def train(torch, dev):
         print("lora_f: every fake update was skipped by the loss guard")
     else:
         assert moved_f > 0, "lora_f did not move"
-    args = cli.get_args(argv + ["--output_dir", "unused"])
     fresh = cli.build_model(args, cli.build_preset(args), dev)
     assert all(torch.equal(p, state.base[n]) for n, p in fresh.named_parameters()), \
         "the frozen base changed"
@@ -918,6 +976,7 @@ def train(torch, dev):
     res = dict(s_per_step_warm=sum(warm) / len(warm), step_s=[r["step_s"] for r in history],
                loss_fake=[r["loss_fake"] for r in history],
                loss_du=[r["loss_du"] for r in history],
+               forwards_a_step=fwd // layers,
                fake_skipped=[r["fake_skipped"] for r in history],
                peak_mem_gib=peak / 2**30, lora_g_b_abs_sum=moved_g,
                lora_f_b_abs_sum=moved_f)
@@ -1622,9 +1681,10 @@ def check_cog_energy(torch, dev, checks):
     """Phase 18: the d = 64 forms of the energy lane's kernels at the
     CogVideoX-5B 480p training shapes (B=1, H=48, d=64, L=17776 with the 226
     text tokens, an energy mask from the real predictor plus one forced
-    empty row): the sparse forward and ``pack_kv`` against their plain
-    versions, the sparse backward kernels, and the dense backward kernels
-    on the pooled branch (K/V pooled by the preset's gap, +log gap bias)."""
+    empty row and one key block no row selected): the sparse forward and
+    ``pack_kv`` against their plain versions, the sparse backward kernels,
+    and the dense backward kernels on the pooled branch (K/V pooled by the
+    preset's gap, +log gap bias), each pair with delta."""
     from blade_torch import config as C
     from blade_torch.attention import asa
     from blade_torch.attention.masks import pad_to_block_multiple
@@ -1646,6 +1706,7 @@ def check_cog_energy(torch, dev, checks):
     q, k, v = (randn(1, h, length, d) for _ in range(3))
     mask = asa.compute_mask(q, k, cfg, generator=make_generator(29, dev))
     mask[0, 7, 30] = False  # one forced empty row
+    mask[0, 8, :, 20] = False  # one key block that no row selected
     density = mask.float().mean().item()
     kf, vf = k.reshape(h, length, d), v.reshape(h, length, d)
     rec = pack_kv(kf, vf)
@@ -2003,7 +2064,7 @@ def cog_multilevel_gradient(torch, dev):
     assert all(torch.isfinite(gr).all() for gr in out)
     n = preset.dit.num_layers
     want = {"dense_fwd": 2 * n, "pack_kv_pyramid": 2 * n, "multilevel_fwd": 2 * n,
-            "sparse_dq": n, "sparse_dkv": n, "pack_kv": n,
+            "sparse_dq": n, "sparse_dkv": n, "attn_delta": n,
             "pooled_level_dq": 3 * n, "pooled_level_dkv": 3 * n}
     print("cog multilevel gradient launches " + json.dumps(launches))
     for name, count in launches.items():
@@ -2056,9 +2117,9 @@ def train_cog(torch, dev):
         assert not rec["fake_skipped"], rec  # no fake-loss guard for CogVideoX
     layers = 42
     fwd = _tdm_forwards(args.k_step, args.cfg, args.lambda_reg) * layers
-    want = {"dense_fwd": 2 * fwd, "sparse_fwd": fwd, "pack_kv": fwd + 2 * layers,
+    want = {"dense_fwd": 2 * fwd, "sparse_fwd": fwd, "pack_kv": fwd,
             "dense_dq": 2 * layers, "dense_dkv": 2 * layers, "sparse_dq": 2 * layers,
-            "sparse_dkv": 2 * layers}
+            "sparse_dkv": 2 * layers, "attn_delta": 4 * layers}
     for i, counts in enumerate(per_step):
         print(f"train_cog step {i} launches " + json.dumps(counts))
         for name, count in counts.items():

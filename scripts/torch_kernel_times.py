@@ -8,7 +8,8 @@ sparse and head-relayout kernels; phase 12 at Wan2.1-14B 720p: the dense
 kernel as its predictor, the three pooled levels and the sparse kernel on
 the level-1 lists; the dense kernel as the CogVideoX pooled branch of phase
 18) and the backward checks (``check_backward``, phase 6: the dense and
-sparse backward kernels at Wan 480p; ``check_cog_energy``, phase 18: the
+sparse backward kernels and the delta kernel at Wan 480p, and the whole
+sparse backward as the port runs it; ``check_cog_energy``, phase 18: the
 same at CogVideoX d = 64, with its sparse forward and ``pack_kv``).
 
     python3 scripts/torch_kernel_times.py [PHASE ...]
@@ -23,7 +24,7 @@ Imports ``blade_torch`` from ``PYTHONPATH`` first, so pointing
 ``PYTHONPATH`` at another checkout times that checkout's kernels with this
 checkout's checks; run two checkouts in turns in one session to compare them
 on one card.  A check whose modules the package lacks is reported and
-skipped.  Prints one JSON line per check (CUDA-event means) and the card's
+skipped; a package without the delta kernel has delta timed in torch.  Prints one JSON line per check (CUDA-event means) and the card's
 name and power limit.
 """
 

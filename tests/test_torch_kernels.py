@@ -208,7 +208,8 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
                                    "dense_dq", "dense_dkv", "sparse_dq", "sparse_dkv",
                                    "pack_kv_pyramid", "multilevel_fwd", "pooled_level_fwd",
                                    "pooled_predictor", "sparse_union_fwd", "heads_pack",
-                                   "heads_unpack", "pooled_level_dq", "pooled_level_dkv"}
+                                   "heads_unpack", "pooled_level_dq", "pooled_level_dkv",
+                                   "attn_delta"}
     assert all(kern.launches == 0 for kern in _build.KERNELS.values())
 
 
@@ -221,6 +222,9 @@ def test_kernel_sources_and_build_flags():
         for where in kern.replaces.split("; "):  # one CUDA kernel may port two
             path, line = where.split(":")
             tpu_line = (root / path).read_text().splitlines()[int(line) - 1]
+            if kern.name == "attn_delta":  # no TPU kernel: JAX's delta, in XLA
+                assert "delta = jnp.sum(g_out" in tpu_line, tpu_line
+                continue
             assert tpu_line.startswith("def _") and "kernel" in tpu_line, tpu_line
     with pytest.raises(ValueError):
         block_sparse_attention(*(_t(a) for a in _qkv(13, 1, 1, 64, 64, 64)),

@@ -11,7 +11,8 @@ pyramid pools in f32 in the same order as its plain version).  The backward
 kernels (the 128-row ones and the pooled-level ones of the multilevel
 backward) are held to 2e-2 * max |ref| per gradient against the plain
 backward: p and ds are rounded to bf16 before each product (relative
-2^-9 a term) and the gradients to bf16 on output.
+2^-9 a term) and the gradients to bf16 on output; delta = rowsum(dO * O)
+to 1e-5 of each row's sum of |dO * O| (f32 sums in another order).
 """
 
 import math
@@ -22,8 +23,10 @@ import torch
 
 from blade_torch.kernels import _build
 from blade_torch.kernels.block_sparse_attn import (
+    _delta_reference,
     _dense_cuda,
     attention_backward,
+    attention_delta,
     block_sparse_attention,
     flash_attention,
     flash_attention_wide_v,
@@ -348,13 +351,18 @@ def test_multilevel_backward_matches_plain(dev, lane, q_rows, l, d):
         return torch.autograd.grad((out, lse), leaves, (g_out.to(device, dtype),
                                                         g_lse.to(device)))
 
-    names = ("pack_kv", "sparse_dq", "sparse_dkv", "pooled_level_dq", "pooled_level_dkv")
+    names = ("pack_kv", "sparse_dq", "sparse_dkv", "pooled_level_dq", "pooled_level_dkv",
+             "attn_delta")
     before = [_build.KERNELS[n].launches for n in names]
     got = grads(dev, torch.bfloat16)
     torch.cuda.synchronize()
-    bwd_pack = 1 if lane == "fused" else 2  # the per-level forward's level 1 packs too
+    # The backward packs nothing (its kernels read K/V in place); the
+    # per-level forward's level 1 packs once.  The fused lane's backward
+    # shares one delta among its four passes; the per-level lane's level 1
+    # and three pooled levels each take their own.
+    pack, delta = (0, 1) if lane == "fused" else (1, 4)
     assert [_build.KERNELS[n].launches - b for n, b in zip(names, before)] == \
-        [bwd_pack, 1, 1, 3, 3]
+        [pack, 1, 1, 3, 3, delta]
     want = grads(torch.device("cpu"), torch.float32)
     for g, w in zip(got, want):
         assert torch.isfinite(g.float()).all()
@@ -409,24 +417,42 @@ BWD_REL = 2e-2
     (200, 450, 128, 0.1, False, (2, 2)),
     (700, 600, 128, 0.0, False, (4, 75)),
     (300, 520, 64, 0.3, False, (4, 75)),
+    # The sparse pair's list walks: lists longer than the ring (a mask kept
+    # at 0.9, lq = lk >= 1100: 9-11 blocks a list against 2 blocks of ring),
+    # ragged lq != lk at both d (last query blocks of 104, 26 and 66 rows,
+    # last key blocks of 20 and 60 keys), and more CTAs than one wave.
+    (1100, 1100, 128, 0.2, 0.9, (2, 2)),
+    (1300, 1300, 64, 0.0, 0.9, (1, 3)),
+    (1000, 1300, 128, 0.0, True, (2, 2)),
+    (1050, 1300, 128, 0.4, True, (2, 2)),
+    (1090, 700, 64, 0.4, True, (2, 2)),
+    (700, 600, 128, 0.0, True, (4, 75)),
+    (300, 520, 64, 0.3, True, (4, 75)),
 ])
 def test_backward_kernels_match_plain(dev, lq, lk, d, bias, masked, heads):
+    """``masked``: False (dense), True (a block mask kept at 0.5) or the share
+    of blocks kept."""
     gen = torch.Generator(device=dev).manual_seed(lq * 7 + lk + d)
     q, k, v = (_rand(gen, *heads, n, d, dev=dev).requires_grad_(True) for n in (lq, lk, lk))
     g_out = _rand(gen, *heads, lq, d, dev=dev)
     g_lse = torch.randn((*heads, lq), generator=gen, device=dev)
     mask = None
     if masked:
+        keep = 0.5 if masked is True else masked
         mask = torch.rand((*heads, -(-lq // 128), -(-lk // 128)), generator=gen,
-                          device=dev) > 0.5
+                          device=dev) > 1.0 - keep
         mask[..., -1] = True  # the ragged tail block
         mask[0, 1, 1] = False  # an empty row: never exp2 of its -1e30 lse
+        mask[0, 0, :, 0] = False  # a key block that no row selected
     names = ("sparse_dq", "sparse_dkv") if masked else ("dense_dq", "dense_dkv")
+    names += ("attn_delta", "pack_kv")
     before = [_build.KERNELS[n].launches for n in names]
     out, lse = block_sparse_attention(q, k, v, mask, bias=bias)
     dq, dk, dv = torch.autograd.grad((out, lse), (q, k, v), (g_out, g_lse))
     torch.cuda.synchronize()
-    assert [_build.KERNELS[n].launches for n in names] == [b + 1 for b in before]
+    # One launch each of the pair and of delta; only the sparse forward packs.
+    assert [_build.KERNELS[n].launches - b for n, b in zip(names, before)] == \
+        [1, 1, 1, int(mask is not None)]
     q, k, v, out, lse = (t.detach() for t in (q, k, v, out, lse))
     scale = 1.0 / math.sqrt(d)
     want = attention_backward_reference(q, k, v, out, lse, g_out, g_lse, block_mask=mask,
@@ -436,6 +462,8 @@ def test_backward_kernels_match_plain(dev, lq, lk, d, bias, masked, heads):
         assert _err(got, ref) <= BWD_REL * ref.float().abs().max().item()
     if masked:
         assert dq[0, 1, 128:256].float().abs().max().item() == 0.0
+        assert dk[0, 0, :128].float().abs().max().item() == 0.0
+        assert dv[0, 0, :128].float().abs().max().item() == 0.0
     else:
         # A row given the empty-row LSE gets p = 0: no gradient, and nothing
         # of it in dK / dV.
@@ -461,6 +489,39 @@ def test_dense_backward_kernels_are_deterministic(dev, lq, lk, d):
     second = attention_backward(q, k, v, out, lse, g_out, g_lse, None, scale=d ** -0.5)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("lq,lk,d", [(1100, 1100, 128), (700, 1186, 64), (333, 300, 128)])
+def test_sparse_backward_kernels_are_deterministic(dev, lq, lk, d):
+    """The sparse pair's twin: no atomics, two calls bit-identical."""
+    gen = torch.Generator(device=dev).manual_seed(lq + lk + d + 1)
+    q, k, v, g_out = (_rand(gen, 2, 3, n, d, dev=dev) for n in (lq, lk, lk, lq))
+    g_lse = torch.randn((2, 3, lq), generator=gen, device=dev)
+    mask = torch.rand((2, 3, -(-lq // 128), -(-lk // 128)), generator=gen, device=dev) > 0.4
+    out, lse = block_sparse_attention(q, k, v, mask)
+    first = attention_backward(q, k, v, out, lse, g_out, g_lse, mask, scale=d ** -0.5)
+    second = attention_backward(q, k, v, out, lse, g_out, g_lse, mask, scale=d ** -0.5)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape,d", [((2, 3, 333), 128), ((1, 5, 1001), 64), ((7,), 64),
+                                     ((4, 75, 130), 128)])
+def test_delta_kernel_matches_plain(dev, shape, d):
+    """``bt_attn_delta`` against ``rowsum(dO * O)`` in f32, ragged row counts:
+    within 1e-5 of each row's sum of |dO * O| (f32 sums in another order),
+    and from a cotangent that is a view at an odd offset."""
+    gen = torch.Generator(device=dev).manual_seed(sum(shape) + d)
+    out = _rand(gen, *shape, d, dev=dev)
+    g_out = _rand(gen, *shape, d + 1, dev=dev)[..., 1:]  # unaligned, strided
+    before = _build.KERNELS["attn_delta"].launches
+    got = attention_delta(out, g_out)
+    torch.cuda.synchronize()
+    assert _build.KERNELS["attn_delta"].launches == before + 1
+    want = _delta_reference(out, g_out)
+    assert got.dtype == torch.float32 and got.shape == tuple(shape)
+    bound = 1e-5 * (out.float() * g_out.float()).abs().sum(-1) + 1e-6
+    assert ((got - want).abs() <= bound).all()
 
 
 def test_norm_rope_backward_is_vjp_of_plain(dev):
