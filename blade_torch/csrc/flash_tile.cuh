@@ -1,6 +1,6 @@
-// The forward flash-attention tile shared by sparse_union.cu,
-// multilevel_attn.cu and pooled_predictor.cu (and its pooled-segment gather
-// by pooled_level_bwd.cu): one CTA
+// The forward flash-attention tile shared by sparse_union.cu and
+// pooled_predictor.cu (and its pooled-segment gather by pooled_level_bwd.cu,
+// through flash_bwd_tile.cuh): one CTA
 // of 4 warps owns 64 query rows (16 a warp, FA2 register layout) and folds
 // 64-key tiles staged in shared memory into a base-2 online-softmax carry,
 // both products on mma.sync m16n8k16 bf16 tensor cores with f32
@@ -64,9 +64,6 @@ __device__ __forceinline__ void init_state(WarpState<D, DVC>& st, const bf16* qb
   st.l[0] = st.l[1] = 0.f;
 }
 
-// Fold one staged tile into the carry.  `valid` bit j: column j is a live
-// key (others score -inf); `c` = scale * log2(e); `b2` is added to every
-// live base-2 score (log2(L) for a tile of L-times pooled keys).
 // Raw scores of this warp's 16 query rows against the staged BN-key tile
 // `ks` (row stride D + 8): s[j] is the m16n8 fragment of keys 8j..8j+7.
 template <int D>
@@ -86,10 +83,12 @@ __device__ __forceinline__ void score_tile(const uint32_t (&qf)[D / 16][4], cons
   }
 }
 
+// Fold one staged tile into the carry.  `valid` bit j: column j is a live
+// key (others score -inf); `c` = scale * log2(e).
 template <int D, int DVC>
 __device__ __forceinline__ void attend_tile(WarpState<D, DVC>& st, const bf16* ks,
                                             const bf16* vs, unsigned long long valid,
-                                            float c, float b2) {
+                                            float c) {
   constexpr int LDV = DVC + 8;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 
@@ -117,13 +116,13 @@ __device__ __forceinline__ void attend_tile(WarpState<D, DVC>& st, const bf16* k
   mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
   mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
 
-  const float mn0 = fmaxf(st.m[0], mx0 * c + b2), mn1 = fmaxf(st.m[1], mx1 * c + b2);
+  const float mn0 = fmaxf(st.m[0], mx0 * c), mn1 = fmaxf(st.m[1], mx1 * c);
   // A row with no live key so far keeps m = -inf; subtract 0 instead so
   // exp2 sees -inf (-> 0) and never -inf - -inf.
   const float ms0 = mn0 == -INFINITY ? 0.f : mn0;
   const float ms1 = mn1 == -INFINITY ? 0.f : mn1;
   const float a0 = exp2_approx(st.m[0] - ms0), a1 = exp2_approx(st.m[1] - ms1);
-  const float o0 = b2 - ms0, o1 = b2 - ms1;
+  const float o0 = -ms0, o1 = -ms1;
 
   float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
@@ -206,21 +205,6 @@ __device__ __forceinline__ unsigned long long gather_pooled_tile(bf16* ks, bf16*
     *reinterpret_cast<uint4*>(vs + r * (D + 8) + cc * 8) = vq;
   }
   return valid;
-}
-
-// Fold one pooled level's listed blocks into the carry, 64/SEG segments a
-// tile (gather_pooled_tile).  `b2` is added to every live base-2 score.
-template <int D, int SEG>
-__device__ __forceinline__ void walk_pooled(WarpState<D, D>& st, bf16* ks, bf16* vs,
-                                            const bf16* pyr, const int* lst, int cnt,
-                                            int pooled_len, float c, float b2) {
-  for (int j0 = 0; j0 < cnt; j0 += BN / SEG) {
-    __syncthreads();
-    const unsigned long long valid =
-        gather_pooled_tile<D, SEG>(ks, vs, pyr, lst, j0, cnt, pooled_len);
-    __syncthreads();
-    attend_tile<D, D>(st, ks, vs, valid, c, b2);
-  }
 }
 
 // Normalise the carry and write this warp's rows: out columns [col0,

@@ -1,5 +1,6 @@
 // The consumer side of the two warp-specialised flash-attention forwards,
-// the dense kernel (flash_attn.cu) and the gather kernel (gather_attn.cu).
+// the dense kernel (flash_attn.cu) and the gather kernel (gather_attn.cu,
+// which also serves the fused multi-level forward).
 //
 // A CTA of 384 threads: warpgroup 0 is the producer (TMA loads of Q once
 // and of K/V tiles into a ring of STAGES stages with full mbarriers, K and V
@@ -46,12 +47,13 @@ __device__ __forceinline__ void issue_pv(float (&o)[DVC / 2], const uint32_t (&p
 }
 
 // Fold the raw scores of one tile into the carry: keys at or past `nvalid`
-// score -inf, s becomes p = 2^(s c - m) in place (f32), m and l advance,
-// and (a0, a1) is the factor by which rows g and g + 8 of O must shrink.
-template <int BN>
+// score -inf, s becomes p = 2^(s c + b - m) in place (f32), m and l
+// advance, and (a0, a1) is the factor by which rows g and g + 8 of O must
+// shrink.  `b` is the tile's base-2 score bias, read only when BIAS.
+template <int BN, bool BIAS = false>
 __device__ __forceinline__ void online_softmax(float (&s)[BN / 2], float& m0, float& m1,
                                                float& l0, float& l1, float& a0, float& a1,
-                                               float c, int nvalid) {
+                                               float c, int nvalid, float b = 0.f) {
   const int t = threadIdx.x & 3;
   if (nvalid < BN) {
 #pragma unroll
@@ -70,20 +72,32 @@ __device__ __forceinline__ void online_softmax(float (&s)[BN / 2], float& m0, fl
   mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
   mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
   mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-  const float mn0 = fmaxf(m0, mx0 * c), mn1 = fmaxf(m1, mx1 * c);
+  float mn0, mn1;
+  if constexpr (BIAS) {
+    mn0 = fmaxf(m0, fmaf(mx0, c, b));
+    mn1 = fmaxf(m1, fmaf(mx1, c, b));
+  } else {
+    mn0 = fmaxf(m0, mx0 * c);
+    mn1 = fmaxf(m1, mx1 * c);
+  }
   // A row with no live key so far keeps m = -inf; subtract 0 instead so
   // exp2 sees -inf (-> 0) and never -inf - -inf.
   const float ms0 = mn0 == -INFINITY ? 0.f : mn0;
   const float ms1 = mn1 == -INFINITY ? 0.f : mn1;
   a0 = exp2_approx(m0 - ms0);
   a1 = exp2_approx(m1 - ms1);
+  float off0 = -ms0, off1 = -ms1;
+  if constexpr (BIAS) {
+    off0 = b - ms0;
+    off1 = b - ms1;
+  }
   float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
-    s[4 * j] = exp2_approx(fmaf(s[4 * j], c, -ms0));
-    s[4 * j + 1] = exp2_approx(fmaf(s[4 * j + 1], c, -ms0));
-    s[4 * j + 2] = exp2_approx(fmaf(s[4 * j + 2], c, -ms1));
-    s[4 * j + 3] = exp2_approx(fmaf(s[4 * j + 3], c, -ms1));
+    s[4 * j] = exp2_approx(fmaf(s[4 * j], c, off0));
+    s[4 * j + 1] = exp2_approx(fmaf(s[4 * j + 1], c, off0));
+    s[4 * j + 2] = exp2_approx(fmaf(s[4 * j + 2], c, off1));
+    s[4 * j + 3] = exp2_approx(fmaf(s[4 * j + 3], c, off1));
     ps0 += s[4 * j] + s[4 * j + 1];
     ps1 += s[4 * j + 2] + s[4 * j + 3];
   }
@@ -106,17 +120,24 @@ __device__ __forceinline__ void to_a_frags(const float (&s)[BN / 2], uint32_t (&
   }
 }
 
+// No score bias: the dense kernel and the one-list gather kernel.
+struct NoScoreBias {
+  static constexpr bool kOn = false;
+  __device__ __forceinline__ float operator()(int) const { return 0.f; }
+};
+
 // One consumer warpgroup's walk over n_tiles >= 1 ring tiles (tile i in
 // stage i % STAGES, phase (i / STAGES) & 1), after Q has arrived: O, m and
 // l accumulate the base-2 online softmax.  `mask(i, stage, s)` sees tile
 // i's raw scores first, may set dead columns to -inf, and returns the
-// count of live leading columns (BN when it masked them itself).
-template <int D, int BN, int DVC, int STAGES, class Mask>
+// count of live leading columns (BN when it masked them itself).  When
+// Bias::kOn, `bias(stage)` is the tile's base-2 score bias.
+template <int D, int BN, int DVC, int STAGES, class Mask, class Bias = NoScoreBias>
 __device__ __forceinline__ void consume_tiles(float (&o)[DVC / 2], float& m0, float& m1,
                                               float& l0, float& l1, uint32_t q_wg,
                                               uint32_t k_s, uint32_t v_s, uint32_t k_full,
                                               uint32_t v_full, uint32_t empty, int n_tiles,
-                                              float c, Mask mask) {
+                                              float c, Mask mask, Bias bias = Bias()) {
   constexpr int K_BYTES = BN * D * 2, V_BYTES = BN * DVC * 2;
   const int lane = threadIdx.x & 31;
   float s[BN / 2], a0, a1;
@@ -128,7 +149,7 @@ __device__ __forceinline__ void consume_tiles(float (&o)[DVC / 2], float& m0, fl
   issue_scores<D, BN>(s, q_wg, k_s);
   wgmma_wait<0>();
   fence_regs(s);
-  online_softmax<BN>(s, m0, m1, l0, l1, a0, a1, c, mask(0, 0, s));
+  online_softmax<BN, Bias::kOn>(s, m0, m1, l0, l1, a0, a1, c, mask(0, 0, s), bias(0));
   to_a_frags<BN>(s, p);
   int ps = 0, pph = 0;  // ring stage and phase of the tile whose P is in p
   for (int it = 1; it < n_tiles; ++it) {
@@ -147,7 +168,8 @@ __device__ __forceinline__ void consume_tiles(float (&o)[DVC / 2], float& m0, fl
     issue_pv<BN, DVC>(o, p, v_s + ps * V_BYTES);
     wgmma_wait<1>();  // the scores are in; P @ V may still run
     fence_regs(s);
-    online_softmax<BN>(s, m0, m1, l0, l1, a0, a1, c, mask(it, stage, s));
+    online_softmax<BN, Bias::kOn>(s, m0, m1, l0, l1, a0, a1, c, mask(it, stage, s),
+                                  bias(stage));
     wgmma_wait<0>();
     fence_regs(o);
     fence_regs(p);

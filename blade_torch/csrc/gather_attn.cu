@@ -1,72 +1,90 @@
 // Block-sparse gather forward for Hopper (sm_90a), bf16 in, f32 accumulate:
-// one kernel, gather_fwd_kernel<D, SEG>, for three TPU kernels that compute
-// the same function over the same record layout.
+// one kernel, gather_fwd_kernel<D, SEG0, NL>, for four TPU kernels that
+// compute the same function over the same record layout.  A CTA walks NL
+// ascending lists of one mask row into one online-softmax carry; list l
+// holds segments of SEG0 >> l rows.
 //
 // Replaces, with SEG the rows of a listed segment:
-//   * blade/kernels/block_sparse_attn.py::_sparse_fwd_rows_kernel (SEG 128)
-//     -> bt_attn_sparse_fwd: block_sparse_attention over ascending per-row
-//     lists of 128-key blocks and bt_pack_kv's records [BH, n_kt, 2, 128, d];
+//   * blade/kernels/block_sparse_attn.py::_sparse_fwd_rows_kernel (one
+//     list, SEG 128) -> bt_attn_sparse_fwd: block_sparse_attention over
+//     ascending per-row lists of 128-key blocks and bt_pack_kv's records
+//     [BH, n_kt, 2, 128, d];
 //   * block_sparse_attn.py::_sparse_fwd_kernel at seg_rows 128/L (pooled
 //     segments DMA-gathered from HBM) and
 //     blade/kernels/multilevel_attn.py::_vmem_level_kernel (the pyramid
-//     resident in VMEM) (SEG 64/32/16 for L = 2/4/8) -> bt_pooled_level_fwd:
-//     one pooled level of the per-level multilevel lane over
-//     bt_pack_kv_pyramid's level-L records [BH, n_kt, 2, 128/L, d].  The
-//     H100 has no multi-megabyte on-chip store to mirror the TPU's split.
+//     resident in VMEM) (one list, SEG 64/32/16 for L = 2/4/8) ->
+//     bt_pooled_level_fwd: one pooled level of the per-level multilevel
+//     lane over bt_pack_kv_pyramid's level-L records [BH, n_kt, 2, 128/L,
+//     d].  The H100 has no multi-megabyte on-chip store to mirror the
+//     TPU's split;
+//   * blade/kernels/multilevel_attn.py::_fused_ml_kernel (four lists, SEG
+//     128/64/32/16) -> bt_multilevel_fwd: the fused multilevel lane, every
+//     level of a mask row in one carry over bt_pack_kv_pyramid's four
+//     record tensors.
 //
-// Function: for each 128-row mask row, an online softmax over the SEG-row
-// segments of its listed blocks (block b's K rows at record row 2 SEG b,
-// its V rows SEG further), segment rows at or past `valid_len - b SEG`
-// masked (valid_len: lk for the sparse forward; the pooled length
-// ceil(lk / L) for a pooled level).  Scores get no bias; the LSE gets
-// `bias` (the caller's for the sparse forward, log(L) for a pooled level:
-// the score bias of a pooled key, on which out does not depend).  P is
-// rounded to bf16 before P @ V; the LSE is natural-log; a row with no
-// listed block gives out 0 and lse -1e30.
+// Function: for each mask row, an online softmax over the segments of its
+// listed blocks (block b's K rows at record row 2 SEG b, its V rows SEG
+// further), segment rows at or past `valid - b SEG` masked (valid: lk for
+// level 1 and the sparse forward; the pooled length ceil(lk / L) for a
+// pooled level).  In the fused multilevel kernel a level-L score gets +log
+// L (every level shares the carry) and the LSE no bias; in the one-list
+// kernels scores get no bias and the LSE gets `lse_bias` (the caller's for
+// the sparse forward, log(L) for a pooled level: the score bias of a
+// pooled key, on which out does not depend).  P is rounded to bf16 before
+// P @ V; the LSE is natural-log; a row with no listed block gives out 0
+// and lse -1e30.
 //
 // What bounds it on the H100: tensor-core math over the listed keys, 4 d
 // flops a query-key pair against each listed record read once (the Wan
 // 480p mask at density 0.21: 1.41 ms of math against ~0.3 GB; Wan2.1-14B
-// 720p pooled levels 2/4/8: 5.9/2.9/3.7 ms).  The design is the dense
-// forward's (flash_wgmma.cuh) with gathered tiles:
-//   * a CTA is one mask row: 128 query rows, 384 threads, one producer warp
-//     and two consumer warpgroups of 64 rows that both read every ring
-//     stage, so a row's records are read from HBM once;
-//   * a ring stage is 128 keys: 128 / SEG listed segments, each landing in
-//     the next SEG-row slice of the stage through one TMA box of SEG rows x
-//     64 columns a column block of K and of V, from a 3-D map over the
-//     records viewed as [BH, n_kt 2 SEG, d].  SEG * 128 bytes is a multiple
-//     of the 1024-byte swizzle period, so every slice is laid out as if the
-//     whole stage had come in one box and the dense kernel's wgmma
-//     descriptors apply unchanged;
-//   * the producer warp's lanes read the row's list (one lane a slot) and
-//     issue the boxes in parallel; the last tile's empty slots are filled
-//     with the tile's first segment (wgmma multiplies every row of the
-//     stage, and a stage's first use would otherwise hold uninitialised
-//     shared memory), and each stage carries the live rows of its slots in
-//     shared memory beside the ring, so the consumers mask dead columns
-//     to -inf before the row max.  Producer and consumers derive the tile
-//     count ceil(cnt / (128 / SEG)) from the same count: an empty row runs
-//     no tile and waits on no barrier.
+// 720p pooled levels 2/4/8: 5.9/2.9/3.7 ms; the fused multilevel lane at
+// CogVideoX-5B 480p, d = 64: 0.70 ms of math against ~0.1 GB of records).
+// The design is the dense forward's (flash_wgmma.cuh) with gathered tiles:
+//   * a CTA is 128 query rows, 384 threads, one producer warp and two
+//     consumer warpgroups of 64 rows that both read every ring stage, so a
+//     CTA reads its row's records from HBM once.  A multilevel mask row of
+//     256 queries is two CTAs over the same lists; the second reads the
+//     records mostly from L2;
+//   * a ring stage is 128 keys of one list: 128 / SEG listed segments,
+//     each landing in the next SEG-row slice of the stage through one TMA
+//     box of SEG rows x 64 columns a column block of K and of V, from a
+//     3-D map over that list's records viewed as [BH, n_kt 2 SEG, d] (one
+//     map a list, all passed in parameter space).  SEG * 128 bytes is a
+//     multiple of the 1024-byte swizzle period, so every slice is laid out
+//     as if the whole stage had come in one box and the dense kernel's
+//     wgmma descriptors apply unchanged;
+//   * the producer warp walks the lists in order, level by level; its
+//     lanes read a tile's list entries (one lane a slot) and issue the
+//     boxes in parallel.  A list's last tile fills its empty slots with the
+//     tile's first segment (wgmma multiplies every row of the stage, and a
+//     stage's first use would otherwise hold uninitialised shared memory),
+//     and each stage carries in shared memory beside the ring the live rows
+//     of its slots, its SEG and its score bias, so the consumers mask dead
+//     columns to -inf before the row max (at a SEG known only at run time
+//     in the multilevel kernel) and add log2 L to a pooled tile's base-2
+//     scores inside the online softmax.  Producer and consumers derive the
+//     tile count, sum over lists of ceil(cnt / (128 / SEG)), from the same
+//     counts: an empty row runs no tile and waits on no barrier.
 // Not carried over from the TPU kernels: the SPARSE_ROWS / GROUP / NBUF DMA
-// machinery, the 8-sublane list replication, the list padding to a multiple
-// of the segments a tile, and the d = 64 lane packing.
+// machinery, the FUSED_ROWS grouping and band-sized pooled tiles, the
+// 8-sublane list replication, the list padding to a multiple of the
+// segments a tile, and the d = 64 lane packing.
 #include <cmath>
 
 #include "flash_wgmma.cuh"
 
 namespace bt {
 
-template <int D, int SEG>
+template <int D>
 struct GatherTile {
-  static constexpr int BM = 128;        // query rows a CTA: one mask row
+  static constexpr int BM = 128;        // query rows a CTA
   static constexpr int BN = 128;        // keys a ring stage
-  static constexpr int SPT = BN / SEG;  // listed segments a stage
   static constexpr int THREADS = 384;   // producer + 2 consumer warpgroups
   static constexpr int Q_BYTES = BM * D * 2;
   static constexpr int KV_BYTES = BN * D * 2;  // K, or V, of one stage
   static constexpr int BAR_BYTES = 128;
-  // A stage's metadata: live rows of each slot, and [15] = every slot whole.
+  // A stage's metadata: live rows of each slot [0, 8), log2 SEG [13], the
+  // base-2 score bias as f32 bits [14], every slot whole [15].
   static constexpr int META_INTS = 16;
   static constexpr int META_BYTES = 4 * META_INTS * 4;
   static constexpr int FIT =
@@ -76,20 +94,109 @@ struct GatherTile {
   static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + BAR_BYTES + META_BYTES;
   static_assert(STAGES >= 2, "two ring stages must fit");
   static_assert(8 * (1 + 3 * STAGES) <= BAR_BYTES, "barrier space");
-  static_assert(SPT <= 15 && (SEG * 128) % 1024 == 0, "a slot starts on the swizzle period");
 };
 
-// One CTA: mask row n_qt - 1 - blockIdx.x (128 query rows) of head
-// blockIdx.y.  Maps: q [bh, lq, D] (box 64 x 128), rec [bh, n_kt 2 SEG, D]
-// (box 64 x SEG), both 128-byte swizzled.
+// The kernel's arguments, passed __grid_constant__: TMA reads its tensor
+// maps in parameter space.
+struct GatherArgs {
+  CUtensorMap tq;     // q [bh, lq, D], box 64 x 128
+  CUtensorMap tr[4];  // list l's records [bh, n_kt 2 SEG_l, D], box 64 x SEG_l
+  const int* lists;   // [bh, n_q, NL, cap] ascending block indices
+  const int* counts;  // [bh, n_q, NL]
+  bf16* out;          // [bh, lq, D]
+  float* lse;         // [bh, lq]
+  int valid[4];       // list l's segment rows at or past valid[l] - b SEG_l are dead
+  int lq, n_qt, n_q;
+  int tiles_per_row;  // 128-row query tiles a mask row
+  int cap;
+  float c;            // scale * log2(e)
+  float lse_bias;
+};
+
+__host__ __device__ constexpr int ilog2(int x) { return x > 1 ? 1 + ilog2(x / 2) : 0; }
+
+// Ring tiles of a mask row: list l takes ceil(cnt[l] / (128 / SEG_l)).
+template <int D, int SEG0, int NL>
+__device__ __forceinline__ int tile_count(const int (&cnt)[NL]) {
+  int n = 0;
+#pragma unroll
+  for (int l = 0; l < NL; ++l) {
+    const int spt = GatherTile<D>::BN / (SEG0 >> l);
+    n += (cnt[l] + spt - 1) / spt;
+  }
+  return n;
+}
+
+// The producer warp's walk over one list of SEG-row segments: tile j0 /
+// SPT fills the next ring stage with listed segments j0 .. j0 + SPT - 1.
 template <int D, int SEG>
-__global__ void __launch_bounds__(GatherTile<D, SEG>::THREADS, 1)
-gather_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tr,
-                  const int* __restrict__ lists, const int* __restrict__ counts,
-                  bf16* __restrict__ out, float* __restrict__ lse, int lq, int n_qt, int max_k,
-                  int valid_len, float c, float bias) {
-  using T = GatherTile<D, SEG>;
-  constexpr int BN = T::BN, STAGES = T::STAGES, SPT = T::SPT, KV = T::KV_BYTES;
+__device__ __forceinline__ void produce_list(const CUtensorMap* map, const int* lst, int cnt,
+                                             int valid, float score_bias, uint32_t k_s,
+                                             uint32_t v_s, uint32_t k_full, uint32_t v_full,
+                                             uint32_t empty, int* meta, int bh, int& stage,
+                                             int& phase) {
+  using T = GatherTile<D>;
+  constexpr int BN = T::BN, SPT = BN / SEG, KV = T::KV_BYTES;
+  static_assert(SPT <= 8 && (SEG * 128) % 1024 == 0, "a slot starts on the swizzle period");
+  const int lane = threadIdx.x;
+  for (int j0 = 0; j0 < cnt; j0 += SPT) {
+    // Lane u < SPT owns slot u: listed segment j0 + u, or, past the count,
+    // the tile's first one again with no live row.
+    int blk = 0, live = 0;
+    if (lane < SPT) {
+      const bool listed = j0 + lane < cnt;
+      blk = lst[listed ? j0 + lane : j0];
+      live = listed ? max(0, min(SEG, valid - blk * SEG)) : 0;
+    }
+    const bool whole = __all_sync(0xffffffffu, lane >= SPT || live == SEG);
+    mbar_wait(empty + 8 * stage, phase ^ 1);
+    int* m = meta + T::META_INTS * stage;
+#pragma unroll
+    for (int u = 0; u < SPT; ++u) {
+      const int lu = __shfl_sync(0xffffffffu, live, u);
+      if (lane == 0) m[u] = lu;
+    }
+    const uint32_t kf = k_full + 8 * stage, vf = v_full + 8 * stage;
+    if (lane == 0) {
+      m[13] = ilog2(SEG);
+      m[14] = __float_as_int(score_bias);
+      m[15] = whole;
+      mbar_expect_tx(kf, KV);  // releases the metadata to the consumers
+      mbar_expect_tx(vf, KV);
+    }
+    __syncwarp();
+    if (lane < SPT) {
+      const uint32_t slot = stage * KV + lane * SEG * 128;
+#pragma unroll
+      for (int cb = 0; cb < D / 64; ++cb) {
+        tma_load_3d(k_s + slot + cb * BN * 128, map, kf, cb * 64, 2 * SEG * blk, bh);
+        tma_load_3d(v_s + slot + cb * BN * 128, map, vf, cb * 64, 2 * SEG * blk + SEG, bh);
+      }
+    }
+    if (++stage == T::STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+}
+
+// A stage's base-2 score bias, from its metadata (the multilevel kernel).
+template <int D>
+struct StageBias {
+  const int* meta;
+  static constexpr bool kOn = true;
+  __device__ __forceinline__ float operator()(int stage) const {
+    return __int_as_float(meta[GatherTile<D>::META_INTS * stage + 14]);
+  }
+};
+
+// One CTA: query tile n_qt - 1 - blockIdx.x (128 rows) of head blockIdx.y,
+// mask row tile / tiles_per_row.
+template <int D, int SEG0, int NL>
+__global__ void __launch_bounds__(GatherTile<D>::THREADS, 1)
+gather_fwd_kernel(const __grid_constant__ GatherArgs a) {
+  using T = GatherTile<D>;
+  constexpr int BN = T::BN, STAGES = T::STAGES, KV = T::KV_BYTES;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = smem_u32(smem_raw);
   const uint32_t q_s = (base + 1023u) & ~1023u;
@@ -101,12 +208,15 @@ gather_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
   const uint32_t k_full = bar + 8, v_full = k_full + 8 * STAGES, empty = v_full + 8 * STAGES;
   int* meta = reinterpret_cast<int*>(smem_raw + (bar + T::BAR_BYTES - base));
 
-  // Rows run last first: the energy lane forces the last two mask rows of
-  // every head to every block (5 to 18 times a typical row), and a long row
-  // launched in the last wave sets the kernel's tail.
-  const int bh = blockIdx.y, row = n_qt - 1 - blockIdx.x, q0 = row * T::BM;
-  const int cnt = counts[bh * n_qt + row];
-  const int n_tiles = (cnt + SPT - 1) / SPT;
+  // Rows run last first: both ASA lanes force the last two mask rows of
+  // every head to every block (5 to 18 times a typical energy-lane row),
+  // and a long row launched in the last wave sets the kernel's tail.
+  const int bh = blockIdx.y, tile = a.n_qt - 1 - blockIdx.x, q0 = tile * T::BM;
+  const size_t row = (size_t)bh * a.n_q + tile / a.tiles_per_row;
+  int cnt[NL];
+#pragma unroll
+  for (int l = 0; l < NL; ++l) cnt[l] = a.counts[row * NL + l];
+  const int n_tiles = tile_count<D, SEG0, NL>(cnt);
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int s = 0; s < STAGES; ++s) {
@@ -119,55 +229,28 @@ gather_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
   __syncthreads();
 
   if (threadIdx.x < 128) {
-    // ---- producer warpgroup: warp 0 reads the list and issues every load ----
+    // ---- producer warpgroup: warp 0 reads the lists and issues every load ----
     setmaxnreg_dec<40>();
     if (threadIdx.x < 32 && n_tiles > 0) {
-      const int lane = threadIdx.x;
-      const int* lst = lists + ((size_t)bh * n_qt + row) * max_k;
-      if (lane == 0) {
+      const int* rl = a.lists + row * NL * a.cap;
+      if (threadIdx.x == 0) {
         mbar_expect_tx(q_full, T::Q_BYTES);
 #pragma unroll
         for (int cb = 0; cb < D / 64; ++cb)
-          tma_load_3d(q_s + cb * 128 * 128, &tq, q_full, cb * 64, q0, bh);
+          tma_load_3d(q_s + cb * 128 * 128, &a.tq, q_full, cb * 64, q0, bh);
       }
       int stage = 0, phase = 0;
-      for (int it = 0; it < n_tiles; ++it) {
-        // Lane u < SPT owns slot u: listed segment it * SPT + u, or, past
-        // the count, the tile's first one again with no live row.
-        const int j0 = it * SPT;
-        int blk = 0, live = 0;
-        if (lane < SPT) {
-          const bool listed = j0 + lane < cnt;
-          blk = lst[listed ? j0 + lane : j0];
-          live = listed ? max(0, min(SEG, valid_len - blk * SEG)) : 0;
-        }
-        const bool whole = __all_sync(0xffffffffu, lane >= SPT || live == SEG);
-        mbar_wait(empty + 8 * stage, phase ^ 1);
-        int* m = meta + T::META_INTS * stage;
-#pragma unroll
-        for (int u = 0; u < SPT; ++u) {
-          const int lu = __shfl_sync(0xffffffffu, live, u);
-          if (lane == 0) m[u] = lu;
-        }
-        const uint32_t kf = k_full + 8 * stage, vf = v_full + 8 * stage;
-        if (lane == 0) {
-          m[15] = whole;
-          mbar_expect_tx(kf, KV);  // releases the metadata to the consumers
-          mbar_expect_tx(vf, KV);
-        }
-        __syncwarp();
-        if (lane < SPT) {
-          const uint32_t slot = stage * KV + lane * SEG * 128;
-#pragma unroll
-          for (int cb = 0; cb < D / 64; ++cb) {
-            tma_load_3d(k_s + slot + cb * BN * 128, &tr, kf, cb * 64, 2 * SEG * blk, bh);
-            tma_load_3d(v_s + slot + cb * BN * 128, &tr, vf, cb * 64, 2 * SEG * blk + SEG, bh);
-          }
-        }
-        if (++stage == STAGES) {
-          stage = 0;
-          phase ^= 1;
-        }
+      // List l is level 2^l of the multilevel lane: base-2 score bias l.
+      produce_list<D, SEG0>(&a.tr[0], rl, cnt[0], a.valid[0], 0.f, k_s, v_s, k_full, v_full,
+                            empty, meta, bh, stage, phase);
+      if constexpr (NL > 1) {
+        static_assert(NL == 4 && SEG0 == 128, "the multilevel walk: levels 1, 2, 4, 8");
+        produce_list<D, 64>(&a.tr[1], rl + a.cap, cnt[1], a.valid[1], 1.f, k_s, v_s, k_full,
+                            v_full, empty, meta, bh, stage, phase);
+        produce_list<D, 32>(&a.tr[2], rl + 2 * a.cap, cnt[2], a.valid[2], 2.f, k_s, v_s,
+                            k_full, v_full, empty, meta, bh, stage, phase);
+        produce_list<D, 16>(&a.tr[3], rl + 3 * a.cap, cnt[3], a.valid[3], 3.f, k_s, v_s,
+                            k_full, v_full, empty, meta, bh, stage, phase);
       }
     }
   } else {
@@ -184,73 +267,88 @@ gather_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
     if (n_tiles > 0) {
       mbar_wait(q_full, 0);
       // Columns of slot u are stage rows [u SEG, u SEG + SEG); the thread's
-      // columns of n8 block j are 8 j + 2 t and 8 j + 2 t + 1.
-      consume_tiles<D, BN, D, STAGES>(
-          o, m0, m1, l0, l1, q_wg, k_s, v_s, k_full, v_full, empty, n_tiles, c,
-          [meta, t](int, int stage, float(&s)[BN / 2]) {
-            const int* m = meta + T::META_INTS * stage;
-            if (!m[15]) {
+      // columns of n8 block j are 8 j + 2 t and 8 j + 2 t + 1.  One list:
+      // SEG is SEG0; several: the stage's.
+      auto mask = [meta, t](int, int stage, float(&s)[BN / 2]) {
+        const int* m = meta + T::META_INTS * stage;
+        if (!m[15]) {
+          const int sh = NL == 1 ? ilog2(SEG0) : m[13];
 #pragma unroll
-              for (int j = 0; j < BN / 8; ++j) {
-                const int live = m[j * 8 / SEG], r = j * 8 % SEG + 2 * t;
-                if (r >= live) s[4 * j] = s[4 * j + 2] = -INFINITY;
-                if (r + 1 >= live) s[4 * j + 1] = s[4 * j + 3] = -INFINITY;
-              }
-            }
-            return BN;
-          });
+          for (int j = 0; j < BN / 8; ++j) {
+            const int live = m[(j * 8) >> sh], r = ((j * 8) & ((1 << sh) - 1)) + 2 * t;
+            if (r >= live) s[4 * j] = s[4 * j + 2] = -INFINITY;
+            if (r + 1 >= live) s[4 * j + 1] = s[4 * j + 3] = -INFINITY;
+          }
+        }
+        return BN;
+      };
+      if constexpr (NL > 1)
+        consume_tiles<D, BN, D, STAGES>(o, m0, m1, l0, l1, q_wg, k_s, v_s, k_full, v_full,
+                                        empty, n_tiles, a.c, mask, StageBias<D>{meta});
+      else
+        consume_tiles<D, BN, D, STAGES>(o, m0, m1, l0, l1, q_wg, k_s, v_s, k_full, v_full,
+                                        empty, n_tiles, a.c, mask);
     }
-    store_rows_wg<D>(o, m0, m1, l0, l1, out + (size_t)bh * lq * D, lse + (size_t)bh * lq, r0,
-                     r1, lq, D, 0, true, bias);
+    store_rows_wg<D>(o, m0, m1, l0, l1, a.out + (size_t)bh * a.lq * D,
+                     a.lse + (size_t)bh * a.lq, r0, r1, a.lq, D, 0, true, a.lse_bias);
   }
 }
 
-template <int D, int SEG>
-static int launch_gather(const void* q, const void* rec, const void* lists, const void* counts,
-                         void* out, void* lse, int bh, int lq, int n_kt, int n_qt, int max_k,
-                         int valid_len, float scale, float bias, cudaStream_t stream) {
-  using T = GatherTile<D, SEG>;
+// `rec[l]`: list l's records, n_kt blocks of 2 (SEG0 >> l) rows a head.
+template <int D, int SEG0, int NL>
+static int launch_gather(GatherArgs& a, const void* q, const void* const* rec, int bh,
+                         int n_kt, cudaStream_t stream) {
+  using T = GatherTile<D>;
   static bool smem_set = false;
   if (!smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        gather_fwd_kernel<D, SEG>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+        gather_fwd_kernel<D, SEG0, NL>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
     if (e != cudaSuccess) return (int)e;
     smem_set = true;
   }
-  CUtensorMap tq, tr;
-  if (!make_map(&tq, q, bh, lq, D, T::BM) || !make_map(&tr, rec, bh, n_kt * 2 * SEG, D, SEG))
-    return (int)cudaErrorInvalidValue;
-  gather_fwd_kernel<D, SEG><<<dim3(n_qt, bh), T::THREADS, T::SMEM, stream>>>(
-      tq, tr, static_cast<const int*>(lists), static_cast<const int*>(counts),
-      static_cast<bf16*>(out), static_cast<float*>(lse), lq, n_qt, max_k, valid_len,
-      scale * LOG2E, bias);
+  if (!make_map(&a.tq, q, bh, a.lq, D, T::BM)) return (int)cudaErrorInvalidValue;
+  for (int l = 0; l < NL; ++l) {
+    const int seg = SEG0 >> l;
+    if (!make_map(&a.tr[l], rec[l], bh, n_kt * 2 * seg, D, seg))
+      return (int)cudaErrorInvalidValue;
+  }
+  gather_fwd_kernel<D, SEG0, NL><<<dim3(a.n_qt, bh), T::THREADS, T::SMEM, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
+// One list at `seg` rows a segment.
 template <int D>
-static int dispatch_seg(int seg, const void* q, const void* rec, const void* lists,
-                        const void* counts, void* out, void* lse, int bh, int lq, int n_kt,
-                        int n_qt, int max_k, int valid_len, float scale, float bias,
-                        cudaStream_t st) {
+static int dispatch_seg(int seg, GatherArgs& a, const void* q, const void* rec, int bh,
+                        int n_kt, cudaStream_t st) {
   switch (seg) {
-    case 128: return launch_gather<D, 128>(q, rec, lists, counts, out, lse, bh, lq, n_kt, n_qt, max_k, valid_len, scale, bias, st);
-    case 64: return launch_gather<D, 64>(q, rec, lists, counts, out, lse, bh, lq, n_kt, n_qt, max_k, valid_len, scale, bias, st);
-    case 32: return launch_gather<D, 32>(q, rec, lists, counts, out, lse, bh, lq, n_kt, n_qt, max_k, valid_len, scale, bias, st);
-    case 16: return launch_gather<D, 16>(q, rec, lists, counts, out, lse, bh, lq, n_kt, n_qt, max_k, valid_len, scale, bias, st);
+    case 128: return launch_gather<D, 128, 1>(a, q, &rec, bh, n_kt, st);
+    case 64: return launch_gather<D, 64, 1>(a, q, &rec, bh, n_kt, st);
+    case 32: return launch_gather<D, 32, 1>(a, q, &rec, bh, n_kt, st);
+    case 16: return launch_gather<D, 16, 1>(a, q, &rec, bh, n_kt, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-static int dispatch(int d, int seg, const void* q, const void* rec, const void* lists,
+// One list of `seg`-row segments: lists [bh, n_qt, max_k], a mask row a
+// query tile.
+static int one_list(int d, int seg, const void* q, const void* rec, const void* lists,
                     const void* counts, void* out, void* lse, int bh, int lq, int n_kt,
                     int n_qt, int max_k, int valid_len, float scale, float bias, void* stream) {
+  GatherArgs a{};
+  a.lists = static_cast<const int*>(lists);
+  a.counts = static_cast<const int*>(counts);
+  a.out = static_cast<bf16*>(out);
+  a.lse = static_cast<float*>(lse);
+  a.valid[0] = valid_len;
+  a.lq = lq;
+  a.n_qt = a.n_q = n_qt;
+  a.tiles_per_row = 1;
+  a.cap = max_k;
+  a.c = scale * LOG2E;
+  a.lse_bias = bias;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 128)
-    return dispatch_seg<128>(seg, q, rec, lists, counts, out, lse, bh, lq, n_kt, n_qt, max_k,
-                             valid_len, scale, bias, st);
-  if (d == 64)
-    return dispatch_seg<64>(seg, q, rec, lists, counts, out, lse, bh, lq, n_kt, n_qt, max_k,
-                            valid_len, scale, bias, st);
+  if (d == 128) return dispatch_seg<128>(seg, a, q, rec, bh, n_kt, st);
+  if (d == 64) return dispatch_seg<64>(seg, a, q, rec, bh, n_kt, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -266,7 +364,7 @@ BT_API int bt_attn_sparse_fwd(const void* q, const void* kv_packed, const void* 
                               float bias, void* stream) {
   if (lq <= 0 || lk <= 0 || bh <= 0 || bh > 65535 || n_qt != (lq + 127) / 128 || max_k <= 0)
     return (int)cudaErrorInvalidValue;
-  return bt::dispatch(d, 128, q, kv_packed, lists, counts, out, lse, bh, lq, (lk + 127) / 128,
+  return bt::one_list(d, 128, q, kv_packed, lists, counts, out, lse, bh, lq, (lk + 127) / 128,
                       n_qt, max_k, lk, scale, bias, stream);
 }
 
@@ -284,6 +382,41 @@ BT_API int bt_pooled_level_fwd(const void* q, const void* rec, const void* lists
       max_k <= 0 || (level != 2 && level != 4 && level != 8) || pooled_len <= 0 ||
       pooled_len > n_kt * (128 / level))
     return (int)cudaErrorInvalidValue;
-  return bt::dispatch(d, 128 / level, q, rec, lists, counts, out, lse, bh, lq, n_kt, n_qt,
+  return bt::one_list(d, 128 / level, q, rec, lists, counts, out, lse, bh, lq, n_kt, n_qt,
                       max_k, pooled_len, scale, std::log((float)level), stream);
+}
+
+// The fused multilevel forward.  q [bh, lq, d] bf16; kv1/kv2/kv4/kv8 from
+// bt_pack_kv_pyramid ([bh, n_kt, 2, 128/L, d], n_kt = ceil(lk/128)); idx
+// [bh, n_q, 4, cap], counts [bh, n_q, 4] int32, ascending lists of levels
+// 1, 2, 4, 8, mask row i covering queries [i q_rows, (i + 1) q_rows) ->
+// out [bh, lq, d] bf16, lse [bh, lq] f32 (natural log).  d in {64, 128};
+// q_rows a multiple of 128 with n_q * q_rows >= lq; every listed index <
+// n_kt, counts <= cap; every pointer 16-byte aligned.
+BT_API int bt_multilevel_fwd(const void* q, const void* kv1, const void* kv2, const void* kv4,
+                             const void* kv8, const void* idx, const void* counts, void* out,
+                             void* lse, int bh, int lq, int lk, int d, int n_q, int cap,
+                             int q_rows, float scale, void* stream) {
+  if (lq <= 0 || lk <= 0 || bh <= 0 || bh > 65535 || cap <= 0 || q_rows <= 0 ||
+      q_rows % 128 || (long long)n_q * q_rows < lq)
+    return (int)cudaErrorInvalidValue;
+  bt::GatherArgs a{};
+  a.lists = static_cast<const int*>(idx);
+  a.counts = static_cast<const int*>(counts);
+  a.out = static_cast<bt::bf16*>(out);
+  a.lse = static_cast<float*>(lse);
+  for (int l = 0; l < 4; ++l) a.valid[l] = (lk + (1 << l) - 1) >> l;  // ceil(lk / L)
+  a.lq = lq;
+  a.n_qt = (lq + 127) / 128;
+  a.n_q = n_q;
+  a.tiles_per_row = q_rows / 128;
+  a.cap = cap;
+  a.c = scale * bt::LOG2E;
+  a.lse_bias = 0.f;
+  const void* rec[4] = {kv1, kv2, kv4, kv8};
+  const int n_kt = (lk + 127) / 128;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d == 128) return bt::launch_gather<128, 128, 4>(a, q, rec, bh, n_kt, st);
+  if (d == 64) return bt::launch_gather<64, 128, 4>(a, q, rec, bh, n_kt, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -20,7 +20,7 @@
 //
 // bt_pooled_level_dq: a CTA owns 64 query rows of one 128-row tile and walks
 // the tile's ascending list, gathering 64/SEG listed segments into one
-// 64-key tile with a live-column mask (the forward's gather_pooled_tile).
+// 64-key tile with a live-column mask (flash_tile.cuh's gather_pooled_tile).
 //
 // bt_pooled_level_dkv: a CTA owns 64 pooled rows = 64/SEG segments (one at
 // level 2, up to four at level 8), each with its own transposed list (the

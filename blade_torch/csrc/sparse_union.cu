@@ -65,7 +65,7 @@ attn_sparse_union_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       load_tile<D, UNION_THREADS>(ks, kb + (size_t)key0 * D, D, nvalid);
       load_tile<D, UNION_THREADS>(vs, vb + (size_t)key0 * D, D, nvalid);
       __syncthreads();
-      if (mine) attend_tile<D, D>(st, ks, vs, prefix_valid(nvalid), c, 0.f);
+      if (mine) attend_tile<D, D>(st, ks, vs, prefix_valid(nvalid), c);
     }
   }
 

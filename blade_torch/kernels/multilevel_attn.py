@@ -9,7 +9,7 @@ and values with a ``+log(L)`` score bias; all levels share one softmax.
   128}) takes per-level ascending lists (``masks.multilevel_lists``) or an
   int level mask.  On the card ``pack_kv_pyramid`` (``csrc/pack.cu``)
   builds the level-1 and pooled records in one pass and
-  ``bt_multilevel_fwd`` (``csrc/multilevel_attn.cu``) walks the four lists
+  ``bt_multilevel_fwd`` (``csrc/gather_attn.cu``) walks the four lists
   into one online-softmax carry.
 * The per-level lane (every other geometry, e.g. Wan2.1-14B 720p with 591
   key blocks) takes an int level mask at 128-row granularity.  Level 1 runs
@@ -79,7 +79,7 @@ FUSED_RES_BUDGET = 7 * 1024 * 1024
 
 _ml_kernel = CudaKernel(
     "multilevel_fwd", "bt_multilevel_fwd", "pppppppppiiiiiiifp",
-    source="blade_torch/csrc/multilevel_attn.cu",
+    source="blade_torch/csrc/gather_attn.cu",
     replaces="blade/kernels/multilevel_attn.py:521",  # _fused_ml_kernel
 )
 _pooled_kernel = CudaKernel(

@@ -306,7 +306,8 @@ def multilevel_lists_attention(
     scale: Optional[float] = None,
 ):
     """Multi-level attention driven by per-level lists: the plain version of
-    the fused multi-level kernel (``csrc/multilevel_attn.cu``).
+    the fused multi-level kernel (``bt_multilevel_fwd``,
+    ``csrc/gather_attn.cu``).
 
     ``lists = (idx [B, H, n_q, 4, cap], counts [B, H, n_q, 4])`` for levels
     1, 2, 4, 8 (``masks.multilevel_lists``); mask row ``i`` covers queries

@@ -67,13 +67,14 @@ no result):
    card) against plain versions (f32, CPU) with shared weights and the
    card's lists replayed;
 12. the dense kernel as the Wan2.1-14B 720p predictor (q,k [1,40,9456,128],
-   V width 640; the plain version on 4 heads) and ``pack_kv`` at 14B K/V
-   shapes (against ``torch.stack``); the pooled-level kernel against its
-   plain version at Wan2.1-14B 720p shapes (B=1, H=40, d=128, L=75600, a
-   level mask from the real predictor), once for each of levels 2, 4 and 8,
-   and the sparse kernel on the level-1 lists (its plain version on 4
-   heads); then the whole per-level multilevel lane and dense flash
-   attention at that shape, timed;
+   V width 640; the plain version on 4 heads), ``pack_kv`` at 14B K/V
+   shapes (against ``torch.stack``) and ``norm_rope`` at the 14B q/k
+   width (x [1,75600,5120] -> [1,40,75600,128]); the pooled-level kernel
+   against its plain version at Wan2.1-14B 720p shapes (B=1, H=40, d=128,
+   L=75600, a level mask from the real predictor), once for each of levels
+   2, 4 and 8, and the sparse kernel on the level-1 lists (its plain
+   version on 4 heads); then the whole per-level multilevel lane and dense
+   flash attention at that shape, timed;
 13. the Wan2.1-14B serving path: the full-width, full-depth
    ``wan-14b-720p`` preset with ``--mask_mode multilevel`` (40 blocks, dim
    5120, 40 heads of 128, 591 key blocks: the per-level lane) on random
@@ -407,14 +408,11 @@ def check_kernels(torch, dev, checks):
     shapes."""
     from blade_torch import config as C
     from blade_torch.attention import asa
-    from blade_torch.attention.gilbert import gilbert_permutations
     from blade_torch.kernels.block_sparse_attn import (
         block_sparse_attention, flash_attention, flash_attention_wide_v)
-    from blade_torch.kernels.norm_rope import _norm_rope_reference, norm_rope_heads
     from blade_torch.kernels.pack import _pack_kv_reference, pack_kv
     from blade_torch.kernels.ref_attention import (
         block_masked_attention, dense_attention_with_lse)
-    from blade_torch.models.layers import rope_3d_tables
     from blade_torch.utils.rng import make_generator
 
     gen = make_generator(1234, dev)
@@ -426,7 +424,6 @@ def check_kernels(torch, dev, checks):
 
     # Tolerances: attention OUT_REL / LSE_ATOL; norm_rope 2e-2 + 1e-2|ref|
     # (one bf16 ulp of the rounded output); pack bit for bit.
-    ROPE = (2e-2, 1e-2)
     record = _recorder(checks)
 
     def attn_check(*a, **kw):
@@ -483,18 +480,33 @@ def check_kernels(torch, dev, checks):
            0.0, _nbytes(kf, vf, got), stack_ms)
 
     # -- norm_rope (#4) -------------------------------------------------------
-    x = randn(1, L, 1536)
-    scale = 1.0 + 0.1 * torch.randn(1536, generator=gen, device=dev)
-    cos, sin = rope_3d_tables(d, (21, 30, 52))
-    perm = gilbert_permutations(52, 30, 21)[0]
+    _norm_rope_check(torch, record, gen, dev, h, (21, 30, 52), True)
+
+
+def _norm_rope_check(torch, record, gen, dev, heads, grid, main):
+    """norm_rope (#4) against its plain version at one Wan width: x
+    ``[1, t*h*w, heads*128]`` bf16 and the rope tables of the latent grid
+    ``(t, h, w)`` in the Gilbert token order, as the Wan DiT builds them.
+    Tolerance 2e-2 + 1e-2 |ref| (one bf16 ulp of the rounded output)."""
+    from blade_torch.attention.gilbert import gilbert_permutations
+    from blade_torch.kernels.norm_rope import _norm_rope_reference, norm_rope_heads
+    from blade_torch.models.layers import rope_3d_tables
+
+    d, (t, hh, w) = 128, grid
+    length, dim = t * hh * w, heads * d
+    x = torch.randn((1, length, dim), generator=gen, device=dev).to(torch.bfloat16)
+    scale = 1.0 + 0.1 * torch.randn(dim, generator=gen, device=dev)
+    cos, sin = rope_3d_tables(d, grid)
+    perm = gilbert_permutations(w, hh, t)[0]
     cos = torch.from_numpy(cos[perm]).to(dev)
     sin = torch.from_numpy(sin[perm]).to(dev)
-    got = norm_rope_heads(x, scale, cos, sin, h)
-    want = _norm_rope_reference(x, scale, cos, sin, h, 1e-6)
-    record("norm_rope", "x [1,32760,1536] -> [1,12,32760,128]", _within(got, want, *ROPE),
-           _max_err(got, want), _cuda_ms(torch, lambda: norm_rope_heads(x, scale, cos, sin, h), 50),
-           _cuda_ms(torch, lambda: _norm_rope_reference(x, scale, cos, sin, h, 1e-6), 20),
-           "2e-2+1e-2|ref|", True, 0.0, _nbytes(x, scale, cos, sin, got))
+    got = norm_rope_heads(x, scale, cos, sin, heads)
+    want = _norm_rope_reference(x, scale, cos, sin, heads, 1e-6)
+    record("norm_rope", f"x [1,{length},{dim}] -> [1,{heads},{length},{d}]",
+           _within(got, want, 2e-2, 1e-2), _max_err(got, want),
+           _cuda_ms(torch, lambda: norm_rope_heads(x, scale, cos, sin, heads), 50),
+           _cuda_ms(torch, lambda: _norm_rope_reference(x, scale, cos, sin, heads, 1e-6), 20),
+           "2e-2+1e-2|ref|", main, 0.0, _nbytes(x, scale, cos, sin, got))
 
 
 def _requests(torch, pipe, text, seed, steps, frames_shape, n=2):
@@ -1160,7 +1172,8 @@ def check_wan14b_predictor(torch, dev, checks):
     all 40 heads, its plain version on the first 4, the library call one
     SDPA on the same inputs; then ``pack_kv`` at the 14B K/V width (591
     whole blocks, as phase 3 takes 256, so that ``torch.stack`` of the
-    blocks is the library call)."""
+    blocks is the library call); then ``norm_rope`` at the 14B q/k width
+    (x [1,75600,5120], 40 heads of 128, the 21 x 45 x 80 grid's tables)."""
     from blade_torch import config as C
     from blade_torch.kernels.block_sparse_attn import flash_attention_wide_v
     from blade_torch.kernels.pack import _pack_kv_reference, pack_kv
@@ -1197,6 +1210,10 @@ def check_wan14b_predictor(torch, dev, checks):
            torch.equal(got, want), _max_err(got, want), pack_ms,
            _cuda_ms(torch, lambda: _pack_kv_reference(kf, vf), 5), "bit exact", False, 0.0,
            _nbytes(kf, vf, got), stack_ms)
+    del kf, vf, got, want
+    # norm_rope (#4) at the 14B q/k width: 40 heads of 128 over the 21 x 45 x
+    # 80 latent grid, 640 launches a 14B clip.
+    _norm_rope_check(torch, record, gen, dev, h, (21, 45, 80), False)
 
 
 def check_wan14b_pooled(torch, dev, checks):

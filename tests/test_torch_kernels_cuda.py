@@ -33,6 +33,7 @@ from blade_torch.kernels.block_sparse_attn import (
 )
 from blade_torch.attention.masks import multilevel_lists, multilevel_mask
 from blade_torch.kernels.multilevel_attn import (
+    levels_to_lists,
     multilevel_attention,
     pooled_level_attention,
     pooled_level_backward,
@@ -175,6 +176,27 @@ def test_pyramid_pack_kernel_bit_exact(dev, bh, lk, d):
 
 
 ML_RATIOS = {1: (0.0, 0.25), 2: (0.25, 0.5), 4: (0.5, 0.75), 8: (0.75, 0.9), 0: (0.9, 1.0)}
+# Per-level counts of the long row of _walk_lists at 65 key blocks: each past
+# the most segments a ring holds at that level (4 stages x 1/2/4/8 segments
+# a stage at d = 64, 3 stages at d = 128); the last, ragged block at level 8.
+ML_LONG_ROW = [5, 9, 17, 34]
+
+
+def _walk_lists(gen, n_q, n_kt, dev):
+    """Lists whose rows walk the multilevel kernel's corners: random levels
+    everywhere but in head 0, where row 0 lists every block in bands of
+    levels 1, 2, 4, 8 (ML_LONG_ROW at 65 blocks: longer than the ring at
+    every level), row 1 lists pooled levels only and row 2 only the last
+    (ragged) block at level 8."""
+    choices = torch.tensor([0, 1, 2, 4, 8], device=dev)
+    levels = choices[torch.randint(0, 5, (1, 2, n_q, n_kt), generator=gen, device=dev)]
+    cuts = [0, 5, 14, 31, n_kt] if n_kt >= 65 else [round(i * n_kt / 4) for i in range(5)]
+    for lv, lo, hi in zip((1, 2, 4, 8), cuts, cuts[1:]):
+        levels[0, 0, 0, lo:hi] = lv
+    levels[0, 0, 1] = choices[2 + torch.randint(0, 3, (n_kt,), generator=gen, device=dev)]
+    levels[0, 0, 2] = 0
+    levels[0, 0, 2, -1] = 8
+    return levels_to_lists(levels)
 
 
 @pytest.mark.parametrize("l,d,q_rows,ratios,cap", [
@@ -183,6 +205,15 @@ ML_RATIOS = {1: (0.0, 0.25), 2: (0.25, 0.5), 4: (0.5, 0.75), 8: (0.75, 0.9), 0: 
     (1288, 64, 256, None, 256),         # the default bands; JAX's cog list cap
     (4000, 128, 128, None, 128),        # 32 key blocks
     (640, 64, 256, ML_RATIOS, 128),     # whole blocks, text-free
+    # _walk_lists (cap n_kt): lists longer than the ring at every level, a
+    # row of pooled levels only, a row of one level-8 segment; lk ragged, so
+    # the last level-8 segment is part-live (14 of 16 rows at 8300, 1 at 900)
+    (8300, 64, 128, "walks", None),
+    (8300, 128, 256, "walks", None),
+    (8300, 64, 256, "walks", None),
+    (8300, 128, 128, "walks", None),
+    (900, 128, 128, "walks", None),
+    (900, 64, 256, "walks", None),
 ])
 def test_multilevel_kernel_matches_plain(dev, l, d, q_rows, ratios, cap):
     """Forced last-two rows, one empty row and ragged tails included; the
@@ -191,8 +222,13 @@ def test_multilevel_kernel_matches_plain(dev, l, d, q_rows, ratios, cap):
     gen = torch.Generator(device=dev).manual_seed(l + d + q_rows)
     q, k, v = (_rand(gen, 1, 2, l, d, dev=dev) for _ in range(3))
     n_q, n_kt = -(-l // q_rows), -(-l // 128)
-    scores = torch.rand((1, 2, n_q, n_kt), generator=gen, device=dev)
-    idx, cnt = multilevel_lists(scores, ratios, cap=cap)
+    if ratios == "walks":
+        idx, cnt = _walk_lists(gen, n_q, n_kt, dev)
+        if n_kt >= 65:
+            assert cnt[0, 0, 0].tolist() == ML_LONG_ROW
+    else:
+        scores = torch.rand((1, 2, n_q, n_kt), generator=gen, device=dev)
+        idx, cnt = multilevel_lists(scores, ratios, cap=cap)
     cnt[0, 1, 0] = 0  # an empty row
     names = ("multilevel_fwd", "pack_kv_pyramid")
     before = [_build.KERNELS[n].launches for n in names]
@@ -205,6 +241,18 @@ def test_multilevel_kernel_matches_plain(dev, l, d, q_rows, ratios, cap):
     assert _err(lse, ref_lse) <= LSE_TOL
     assert out[0, 1, :q_rows].abs().max().item() == 0.0
     assert lse[0, 1, :q_rows].max().item() == torch.tensor(NEG_INF).item()
+
+
+@pytest.mark.parametrize("d,q_rows", [(64, 256), (128, 128)])
+def test_multilevel_kernel_is_deterministic(dev, d, q_rows):
+    """Two calls on the same inputs give bit-identical out and lse."""
+    l = 8300
+    gen = torch.Generator(device=dev).manual_seed(d + q_rows)
+    q, k, v = (_rand(gen, 1, 2, l, d, dev=dev) for _ in range(3))
+    lists = _walk_lists(gen, -(-l // q_rows), -(-l // 128), dev)
+    first = multilevel_attention(q, k, v, lists=lists, q_rows=q_rows)
+    second = multilevel_attention(q, k, v, lists=lists, q_rows=q_rows)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.parametrize("level,lq,lk,d,bh", [
@@ -369,7 +417,14 @@ def test_multilevel_backward_matches_plain(dev, lane, q_rows, l, d):
         assert _err(g.cpu(), w) <= BWD_REL * w.abs().max().item()
 
 
-@pytest.mark.parametrize("s,dim,heads", [(504, 1536, 12), (100, 256, 2), (64, 128, 2)])
+@pytest.mark.parametrize("s,dim,heads", [
+    (504, 1536, 12), (100, 256, 2), (64, 128, 2),
+    (61, 5120, 40),    # the Wan2.1-14B width: four warps a row
+    (503, 1536, 12),   # 1006 rows: the last CTA's 8 row slots not filled
+    (300, 1536, 24),   # d = 64 at the 1.3B width
+    (50, 96, 4),       # d = 24 and d = 8: the partner read element by
+    (40, 64, 8),       # element (d / 8 not a power of two from 2 to 32)
+])
 def test_norm_rope_kernel_matches_plain(dev, s, dim, heads):
     gen = torch.Generator(device=dev).manual_seed(s + dim)
     x = _rand(gen, 2, s, dim, dev=dev)

@@ -1,9 +1,10 @@
 """The port's plain multi-level attention (the plain version of
-``csrc/multilevel_attn.cu``) against JAX's fused multi-level Pallas kernel
-in interpret mode, on the same f32 inputs and per-level lists: ragged
-lengths (edge-padded pyramid, pooled tail masking), the forced last two
-rows, one empty row, both of JAX's pooled lanes (the single-shot merged
-tile and the per-level loops), q_rows 128 and 256, d 64 and 128.
+``bt_multilevel_fwd`` in ``csrc/gather_attn.cu``) against JAX's fused
+multi-level Pallas kernel in interpret mode, on the same f32 inputs and
+per-level lists: ragged lengths (edge-padded pyramid, pooled tail
+masking), the forced last two rows, one empty row, both of JAX's pooled
+lanes (the single-shot merged tile and the per-level loops), q_rows 128
+and 256, d 64 and 128.
 Tolerance 1e-5 (f32 online softmax against a masked dense softmax).
 Each configuration costs ~30 s of Pallas interpret compilation.
 """
