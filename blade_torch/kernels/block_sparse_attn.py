@@ -32,9 +32,10 @@ default), the sparse forward pairs the mask rows (``QGROUP`` = 2; an odd row
 count is padded with one empty row), walks the union of each pair's key
 blocks with per-row validity bits (``masks.union_block_lists``, its bounded
 ``topk`` lane when the caller passes ``union_bound``) and launches the
-union-gathered kernel of ``csrc/sparse_union.cu``; CPU tensors take its
-plain version, the block-masked attention over the masks rebuilt from the
-union lists.  The backward is unchanged: as in JAX, it rebuilds the plain
+gather kernel's union walk (``csrc/gather_attn.cu``: a CTA a mask row takes
+the union entries its bit selects, K/V read in place, no ``pack_kv``); CPU
+tensors take its plain version, the block-masked attention over the masks
+rebuilt from the union lists.  The backward is unchanged: as in JAX, it rebuilds the plain
 per-row lists from the mask.
 """
 
@@ -75,7 +76,7 @@ _sparse_kernel = CudaKernel(
 )
 _union_kernel = CudaKernel(
     "sparse_union_fwd", "bt_attn_sparse_union_fwd", "pppppppiiiiiiffp",
-    source="blade_torch/csrc/sparse_union.cu",
+    source="blade_torch/csrc/gather_attn.cu",
     replaces="blade/kernels/block_sparse_attn.py:522",  # _sparse_fwd_union_kernel
 )
 _BWD_SOURCE = "blade_torch/csrc/flash_attn_bwd.cu"

@@ -5,8 +5,10 @@ Counterpart of ``blade/kernels/pooled_predictor.py::pooled_scores_kernel_call``:
 softmax_row(q_s k_s^T * scale)[m, n]`` over the subsampled sequences, each
 row then renormalised to sum to 1 -- the reference's renormalised col-max
 pooling.  On the card it launches ``csrc/pooled_predictor.cu`` (bf16 in,
-f32 scores and statistics, ``Po`` f32 out); CPU tensors take the plain
-version ``masks.pooled_scores_plain`` (f32 on the values given).
+f32 scores and statistics, ``Po`` f32 out; one pass over ``k_s`` that
+writes each sampled row's raw k-block maxima to a scratch the wrapper
+allocates); CPU tensors take the plain version
+``masks.pooled_scores_plain`` (f32 on the values given).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from blade_torch.kernels._build import CudaKernel, check_inputs, cuda_stream
 __all__ = ["pooled_scores"]
 
 _pooled_kernel = CudaKernel(
-    "pooled_predictor", "bt_pooled_scores", "pppiiiiifp",
+    "pooled_predictor", "bt_pooled_scores", "ppppiiiiifp",
     source="blade_torch/csrc/pooled_predictor.cu",
     replaces="blade/kernels/pooled_predictor.py:45",  # _kernel
 )
@@ -36,8 +38,9 @@ def _pooled_scores_cuda(q_s, k_s, tpb, scale):
         raise ValueError(f"pooled_scores: the kernel takes d in (64, 128) and "
                          f"tokens_per_block in (16, 32) (d={d}, tpb={tpb})")
     po = torch.empty((b, h, ls // tpb, lks // tpb), dtype=torch.float32, device=q_s.device)
-    _pooled_kernel(q_s.data_ptr(), k_s.data_ptr(), po.data_ptr(), b * h, ls, lks, d, tpb,
-                   float(scale), cuda_stream(q_s.device))
+    raw = torch.empty((b * h, ls, lks // tpb), dtype=torch.float32, device=q_s.device)
+    _pooled_kernel(q_s.data_ptr(), k_s.data_ptr(), raw.data_ptr(), po.data_ptr(), b * h, ls,
+                   lks, d, tpb, float(scale), cuda_stream(q_s.device))
     return po
 
 

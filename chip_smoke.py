@@ -90,11 +90,12 @@ no result):
    the velocity and the LoRA gradients of one loss (the per-level half of
    the multilevel gradient check);
 15. the last three kernels against their plain versions: the "max"
-   predictor's pooled-scores kernel at Wan 480p with 32 and 16 tokens a
-   block and at CogVideoX 480p with 32; the union-gathered sparse forward at
-   Wan 480p on a mask from the real predictor with one forced empty row,
-   timed in turns with one masked SDPA on that mask, beside the 128-row
-   sparse kernel on the same mask; the head relayouts
+   predictor's pooled-scores kernel (one pass over the sampled keys on
+   ``wgmma``) at Wan 480p with 32 and 16 tokens a block and at CogVideoX
+   480p with 32; the union-gathered sparse forward (the gather kernel's
+   union walk) at Wan 480p on a mask from the real predictor with one
+   forced empty row, timed in turns with one masked SDPA on that mask,
+   beside the 128-row sparse kernel on the same mask; the head relayouts
    ``heads_pack`` / ``heads_unpack``, bit exact, at the Wan 1.3B and 14B
    q/k widths (no model calls them, as in the JAX package);
 16. path (a), the reference-parity predictor: the ``wan-1.3b-480p`` preset
@@ -1421,10 +1422,11 @@ def _with_union(bsa, fn):
 
 def check_last_kernels(torch, dev, checks):
     """Phase 15: the "max" predictor's pooled-scores kernel (#13) at three
-    shapes, the union-gathered sparse forward (#14) at Wan 480p on a mask
-    from the real energy predictor with one forced empty row (beside the
-    128-row sparse kernel on the same mask), and the head relayouts (#15),
-    bit exact, at the Wan 1.3B and 14B q/k widths."""
+    shapes, the union-gathered sparse forward (#14, the gather kernel's union
+    walk) at Wan 480p on a mask from the real energy predictor with one
+    forced empty row (beside the 128-row sparse kernel, #2, on the same
+    mask: the same tensor-core work, so the times compare), and the head
+    relayouts (#15), bit exact, at the Wan 1.3B and 14B q/k widths."""
     from blade_torch import config as C
     from blade_torch.attention import asa
     from blade_torch.attention.masks import pooled_scores_plain, union_block_lists
@@ -1492,10 +1494,13 @@ def check_last_kernels(torch, dev, checks):
     torch.cuda.empty_cache()
     union_ms = checks["sparse_union_fwd"][-1]["ms"]
     rows_ms = _cuda_ms(torch, lambda: bsa.block_sparse_attention(q, k, v, mask), 10)
+    # Both kernels stage each row's selected blocks once (a CTA a mask row);
+    # the union's distinct blocks a pair are what HBM must give when the
+    # pair's second CTA reads the shared ones from L2.
     print(f"union vs 128-row sparse forward on the same mask: sparse_union_fwd {union_ms:.3f} ms, "
-          f"sparse_fwd {rows_ms:.3f} ms; K/V blocks read: union {int(u_cnt.sum().item())} "
-          f"(x2 CTAs a pair) vs rows {int(rows_sum)} (x2 CTAs a row), share "
-          f"{u_cnt.sum().item() / rows_sum:.4f}")
+          f"sparse_fwd {rows_ms:.3f} ms ({union_ms / rows_ms:.3f}x); K/V blocks staged "
+          f"{int(rows_sum)} by each, distinct a pair {int(u_cnt.sum().item())} (share "
+          f"{u_cnt.sum().item() / rows_sum:.4f})")
     del q, k, v, out, lse
 
     # -- head relayouts (#15), bit exact; the library call is PyTorch's own

@@ -17,8 +17,10 @@ same at CogVideoX d = 64, with its sparse forward and ``pack_kv``).
 ``PHASE`` names ``chip_smoke`` check functions, e.g. ``check_kernels
 check_dense_d64`` for the Wan and CogVideoX dense and pack checks alone,
 ``check_backward check_cog_energy`` for the dense backward at its three
-shapes, or ``check_cog_multilevel_backward`` for the pooled backward
-kernels of phase 19.
+shapes, ``check_cog_multilevel_backward`` for the pooled backward kernels
+of phase 19, or ``check_last_kernels`` for the "max" predictor's
+one-pass ``wgmma`` kernel at its three shapes and the gather kernel's union
+walk beside the 128-row walk on the same mask (phase 15).
 
 Imports ``blade_torch`` from ``PYTHONPATH`` first, so pointing
 ``PYTHONPATH`` at another checkout times that checkout's kernels with this

@@ -597,7 +597,11 @@ def test_norm_rope_backward_is_vjp_of_plain(dev):
     (32, 128, 10, 7),    # ragged: 224 sampled keys end mid-tile
     (16, 128, 9, 16),    # 144 sampled queries: the last CTA half-empty
     (32, 64, 8, 256),    # Wan 480p's 256 key blocks
-    (16, 64, 4, 2000),   # Po rows past 48 KB of shared memory
+    (16, 64, 4, 2000),   # 2000 k-blocks: 250 key tiles through the ring
+    (32, 128, 6, 591),   # the Wan2.1-14B grid's 591 key blocks
+    (16, 128, 13, 591),  # ... at 16 tokens: 208 sampled rows, 74 key tiles
+    (32, 64, 5, 139),    # the CogVideoX 480p grid at d 64: 4448 keys end mid-tile
+    (16, 64, 7, 9),      # 112 sampled rows and 144 keys: one part-live tile each
 ])
 def test_pooled_predictor_kernel_matches_plain(dev, tpb, d, nq, nk):
     """``Po`` against the plain version on the same bf16 inputs: 1e-5
@@ -619,6 +623,20 @@ def test_pooled_predictor_kernel_matches_plain(dev, tpb, d, nq, nk):
     assert (got.sum(-1) - 1.0).abs().max().item() <= 1e-5
 
 
+@pytest.mark.parametrize("tpb,d", [(32, 128), (16, 64)])
+def test_pooled_predictor_kernel_is_deterministic(dev, tpb, d):
+    """Two calls on the same inputs give the same bits (no atomics: each Po
+    entry is one thread's max over its q-block's rows), over 40 heads of
+    ragged lengths: more CTAs than one wave."""
+    from blade_torch.kernels.pooled_predictor import pooled_scores
+
+    gen = torch.Generator(device=dev).manual_seed(tpb + d)
+    q, k = _rand(gen, 1, 40, 11 * tpb, d, dev=dev), _rand(gen, 1, 40, 37 * tpb, d, dev=dev)
+    a, b = pooled_scores(q, k, tpb), pooled_scores(q, k, tpb)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
 def _union(q, k, v, mask, **kw):
     from blade_torch.kernels import block_sparse_attn as bsa
 
@@ -630,15 +648,24 @@ def _union(q, k, v, mask, **kw):
         bsa.SPARSE_UNION = old
 
 
-@pytest.mark.parametrize("lq,lk,d", [(300, 330, 128), (512, 700, 128), (384, 200, 64)])
-def test_sparse_union_kernel_matches_plain(dev, lq, lk, d):
+@pytest.mark.parametrize("lq,lk,d,heads", [
+    (300, 330, 128, 2), (512, 700, 128, 2), (384, 200, 64, 2),
+    # 13 and 14 key blocks, ragged lk: lists longer than the ring of 3 (d
+    # 128) or 4 (d 64) stages, an odd mask-row count
+    (1600, 1650, 128, 2), (1700, 1750, 64, 2),
+    # 2 x 40 x 6 mask rows: more CTAs than one wave on 132 SMs
+    (700, 600, 128, 40), (768, 900, 64, 40),
+])
+def test_sparse_union_kernel_matches_plain(dev, lq, lk, d, heads):
     """Odd and even mask-row counts, ragged keys, an empty row beside a
-    non-empty one, and a row listing every block."""
+    non-empty one (its bit never set in the pair's list), and a row listing
+    every block."""
     gen = torch.Generator(device=dev).manual_seed(lq + lk + d)
-    q, k, v = (_rand(gen, 2, 2, n, d, dev=dev) for n in (lq, lk, lk))
+    q, k, v = (_rand(gen, 2, heads, n, d, dev=dev) for n in (lq, lk, lk))
     n_qt, n_kt = -(-lq // 128), -(-lk // 128)
-    mask = torch.rand((2, 2, n_qt, n_kt), generator=gen, device=dev) > 0.5
+    mask = torch.rand((2, heads, n_qt, n_kt), generator=gen, device=dev) > 0.5
     mask[..., 0] = True
+    mask[..., -1] = True  # the ragged tail block
     mask[0, 1, 1] = False  # an empty row
     mask[1, 0, 0] = True  # a row listing every block
     counts = {n: _build.KERNELS[n].launches for n in ("sparse_union_fwd", "sparse_fwd", "pack_kv")}
@@ -654,13 +681,14 @@ def test_sparse_union_kernel_matches_plain(dev, lq, lk, d):
     assert lse[0, 1, 128:256].max().item() == torch.tensor(NEG_INF).item()
 
 
-def test_sparse_union_kernel_with_bound_on_an_energy_mask(dev):
+@pytest.mark.parametrize("d", [128, 64])
+def test_sparse_union_kernel_with_bound_on_an_energy_mask(dev, d):
     """The energy lane's call: an energy mask of 40 key blocks and its union
     bound (the forced full rows exceed it and go through as identity lists)."""
     from blade_torch.attention.masks import energy_mask
 
-    gen = torch.Generator(device=dev).manual_seed(5)
-    q, k, v = (_rand(gen, 1, 3, 5100, 128, dev=dev) for _ in range(3))
+    gen = torch.Generator(device=dev).manual_seed(5 + d)
+    q, k, v = (_rand(gen, 1, 3, 5100, d, dev=dev) for _ in range(3))
     scores = torch.rand((1, 3, 40, 40), generator=gen, device=dev) ** 4
     mask = energy_mask(scores / scores.sum(-1, keepdim=True), min_retain_ratio=0.05,
                        max_retain_ratio=0.2)
@@ -669,6 +697,18 @@ def test_sparse_union_kernel_with_bound_on_an_energy_mask(dev):
     ref_out, ref_lse = block_masked_attention(q, k, v, mask, block_k=128)
     assert _err(out, ref_out) <= OUT_TOL
     assert _err(lse, ref_lse) <= LSE_TOL
+
+
+@pytest.mark.parametrize("d", [128, 64])
+def test_sparse_union_kernel_is_deterministic(dev, d):
+    """Two calls give the same bits: every row's blocks in one ascending
+    order, no atomics (3 x 7 mask rows, lists longer than the ring)."""
+    gen = torch.Generator(device=dev).manual_seed(d)
+    q, k, v = (_rand(gen, 1, 3, n, d, dev=dev) for n in (850, 1500, 1500))
+    mask = torch.rand((1, 3, 7, 12), generator=gen, device=dev) > 0.3
+    a, b = _union(q, k, v, mask), _union(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 @pytest.mark.parametrize("b,s,h,d,dtype", [

@@ -155,3 +155,65 @@ def test_union_lists_pad_an_odd_row_count():
     live = torch.arange(7) < counts[..., None]
     assert ((bits[:, 2] & 2) == 0).all()  # the padded row selects nothing
     assert ((bits[live] > 0)).all()  # every listed block is some row's
+
+
+def _forced_rows_mask(rng, lead, n_q, n_k, p):
+    """A random mask whose last two rows select every block, as both ASA
+    lanes force them."""
+    mask = rng.random((*lead, n_q, n_k)) < p
+    mask[..., -2:, :] = True
+    return mask
+
+
+def _row_walks(entries, counts):
+    """What the union walk's CTA of mask row 2 i + r takes: the blocks of
+    the pair's first ``counts`` entries whose bit r is set, in list order."""
+    walks = []
+    for i, (row, cnt) in enumerate(zip(entries.tolist(), counts.tolist())):
+        for r in range(TBSA.QGROUP):
+            walks.append([e & 0xFFFF for e in row[:cnt] if (e >> (16 + r)) & 1])
+    return walks
+
+
+@pytest.mark.parametrize("kind,bound", [
+    ("random", None), ("random", "tight"), ("energy", None), ("energy", "lane"),
+])
+@pytest.mark.parametrize("n_q", [9, 10])
+def test_union_walk_takes_exactly_each_rows_blocks(kind, bound, n_q):
+    """The invariant the union kernel's walk relies on: in each pair's list
+    (built by ``_union_lists``, an odd row count padded with an empty row),
+    the entries whose bit r is set are mask row 2 i + r's selected blocks,
+    ascending; the pad row takes none.  With a bound, the pairs over it
+    (the forced full rows) are rewritten as identity lists and still give
+    every row its own blocks.  The lists equal ``blade``'s
+    ``union_block_lists`` on the same padded mask."""
+    rng = np.random.default_rng(n_q + (kind == "energy"))
+    n_k = 24
+    if kind == "random":
+        mask = _forced_rows_mask(rng, (2, 3), n_q, n_k, 0.3)
+        mask[0, 1, 2] = False  # an empty row beside a partner that selects blocks
+    else:
+        scores = rng.random((2, 3, n_q, n_k)).astype(np.float32) ** 4
+        mask = np.asarray(jmasks.energy_mask(scores / scores.sum(-1, keepdims=True),
+                                             min_retain_ratio=0.05, max_retain_ratio=0.2))
+    bh_mask = mask.reshape(6, n_q, n_k)
+    padded = np.concatenate([bh_mask, np.zeros((6, n_q % 2, n_k), bool)], axis=1)
+    union = padded.reshape(6, -1, 2, n_k).any(axis=2).sum(-1)
+    if bound == "tight":  # the largest union a pair without a forced row makes
+        bound = int(union[union < n_k].max())
+    elif bound == "lane":
+        bound = 2 * (int(n_k * 0.2) + 2)
+    entries, counts = TBSA._union_lists(_t(bh_mask), bound)
+    idx, cnt, bits = jmasks.union_block_lists(jnp.asarray(padded), group=2, bound=bound)
+    np.testing.assert_array_equal(entries.numpy(),
+                                  np.asarray(idx) | (np.asarray(bits) << 16))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(cnt))
+    if bound is not None:  # the pairs with a forced row: identity lists
+        assert bound < n_k and (counts[:, -1] == n_k).all()
+        assert ((counts.numpy() <= bound) | (union == n_k)).all()
+    for h in range(6):
+        walks = _row_walks(entries[h], counts[h])
+        assert len(walks) == padded.shape[1]
+        for row, walk in enumerate(walks):
+            assert walk == np.flatnonzero(padded[h, row]).tolist(), (h, row)
+    assert walks[-1] == [] or n_q % 2 == 0
