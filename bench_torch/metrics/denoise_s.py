@@ -1,0 +1,6 @@
+"""``denoise_s``: host seconds a clip spends in ``sample_latents`` (from a
+synchronize to a synchronize), the window's total over its clips."""
+
+
+def read(records):
+    return records.get("denoise_s")
