@@ -47,6 +47,7 @@ from blade_torch.kernels.block_sparse_attn import (
 from blade_torch.kernels.multilevel_attn import fused_supported, multilevel_attention
 from blade_torch.kernels.pooled_predictor import pooled_scores
 from blade_torch.kernels.ref_attention import merge_attention
+from blade_torch.utils import tracing
 
 __all__ = ["ASAConfig", "predict_block_scores", "compute_mask", "compute_lists",
            "adaptive_sparse_attention", "asa_attention", "BLOCK"]
@@ -175,10 +176,12 @@ def compute_lists(q, k, cfg: ASAConfig, *, generator=None, offsets=None):
     """Per-level block lists for the multilevel lane, the mask artifact on
     that lane: ``(idx [B, H, n_q, 4, cap], counts [B, H, n_q, 4])`` with
     ``cap = ceil(n_k / 128) * 128``."""
-    scores = _coarsen_scores(
-        predict_block_scores(q, k, cfg, generator=generator, offsets=offsets), cfg)
-    n_kt = -(-k.shape[2] // BLOCK)
-    return M.multilevel_lists(scores, cfg.mask_ratios, cap=-(-n_kt // 128) * 128)
+    with tracing.span("asa.predict"):
+        scores = predict_block_scores(q, k, cfg, generator=generator, offsets=offsets)
+    with tracing.span("asa.select"):
+        n_kt = -(-k.shape[2] // BLOCK)
+        return M.multilevel_lists(_coarsen_scores(scores, cfg), cfg.mask_ratios,
+                                  cap=-(-n_kt // 128) * 128)
 
 
 def compute_mask(q, k, cfg: ASAConfig, *, generator=None, offsets=None):
@@ -186,17 +189,19 @@ def compute_mask(q, k, cfg: ASAConfig, *, generator=None, offsets=None):
     the boolean energy mask, or on the multilevel lane the int level mask
     (at ``multilevel_q_rows`` granularity when the fused lane supports the
     geometry, as in JAX)."""
-    scores = predict_block_scores(q, k, cfg, generator=generator, offsets=offsets)
-    if cfg.mask_mode == "multilevel":
-        if _fused_lane_supported(cfg, q, k):
-            scores = _coarsen_scores(scores, cfg)
-        return M.multilevel_mask(scores, cfg.mask_ratios)
-    return M.energy_mask(
-        scores,
-        min_retain_ratio=cfg.min_retain_ratio,
-        max_retain_ratio=cfg.max_retain_ratio,
-        energy_threshold=cfg.energy_threshold,
-    )
+    with tracing.span("asa.predict"):
+        scores = predict_block_scores(q, k, cfg, generator=generator, offsets=offsets)
+    with tracing.span("asa.select"):
+        if cfg.mask_mode == "multilevel":
+            if _fused_lane_supported(cfg, q, k):
+                scores = _coarsen_scores(scores, cfg)
+            return M.multilevel_mask(scores, cfg.mask_ratios)
+        return M.energy_mask(
+            scores,
+            min_retain_ratio=cfg.min_retain_ratio,
+            max_retain_ratio=cfg.max_retain_ratio,
+            energy_threshold=cfg.energy_threshold,
+        )
 
 
 def adaptive_sparse_attention(
@@ -227,24 +232,29 @@ def adaptive_sparse_attention(
     # bounded lane of the union lists (SPARSE_UNION) asks of its bound.
     n_k = mask.shape[-1]
     union_bound = 2 * (max(int(n_k * cfg.max_retain_ratio), 1) + 2)
-    out1, lse1 = block_sparse_attention(
-        q, k, v, mask, union_bound=union_bound if union_bound < n_k else None)
+    with tracing.span("asa.sparse"):
+        out1, lse1 = block_sparse_attention(
+            q, k, v, mask, union_bound=union_bound if union_bound < n_k else None)
 
     # Low-res global branch: sample_gap-mean-pooled K/V with a +log(gap)
     # bias (each pooled key stands in for `gap` keys).
     gap = cfg.sample_gap
-    kp = M.pad_to_block_multiple(k, gap)
-    vp = M.pad_to_block_multiple(v, gap)
-    k_pool = (kp.reshape(*kp.shape[:2], -1, gap, kp.shape[-1]).float().sum(dim=-2)
-              * (1.0 / gap)).to(k.dtype)
-    v_pool = (vp.reshape(*vp.shape[:2], -1, gap, vp.shape[-1]).float().sum(dim=-2)
-              * (1.0 / gap)).to(v.dtype)
-    out2, lse2 = flash_attention(q, k_pool, v_pool, scale=1.0 / math.sqrt(q.shape[-1]),
-                                 bias=float(math.log(gap)))
+    with tracing.span("asa.pooled"):
+        kp = M.pad_to_block_multiple(k, gap)
+        vp = M.pad_to_block_multiple(v, gap)
+        k_pool = (kp.reshape(*kp.shape[:2], -1, gap, kp.shape[-1]).float().sum(dim=-2)
+                  * (1.0 / gap)).to(k.dtype)
+        v_pool = (vp.reshape(*vp.shape[:2], -1, gap, vp.shape[-1]).float().sum(dim=-2)
+                  * (1.0 / gap)).to(v.dtype)
+        out2, lse2 = flash_attention(q, k_pool, v_pool, scale=1.0 / math.sqrt(q.shape[-1]),
+                                     bias=float(math.log(gap)))
 
-    out, _ = merge_attention([out1, out2], [lse1, lse2])
-    sparsity = 1.0 - M.mask_density(mask) - 1.0 / gap
-    return out.to(q.dtype), sparsity
+    with tracing.span("asa.merge"):
+        out, _ = merge_attention([out1, out2], [lse1, lse2])
+        out = out.to(q.dtype)
+    density = M.mask_density(mask)
+    _count_blocks(lambda: density * mask.numel(), mask.numel())
+    return out, 1.0 - density - 1.0 / gap
 
 
 def _multilevel_lane(q, k, v, cfg, mask, generator, offsets):
@@ -253,16 +263,35 @@ def _multilevel_lane(q, k, v, cfg, mask, generator, offsets):
     if mask is None:
         mask = (compute_lists if _fused_lane_supported(cfg, q, k) else compute_mask)(
             q, k, cfg, generator=generator, offsets=offsets)
-    if isinstance(mask, (tuple, list)):
-        out, _ = multilevel_attention(q, k, v, lists=tuple(mask),
-                                      q_rows=cfg.multilevel_q_rows)
-    else:
-        n128 = -(-q.shape[2] // BLOCK)
-        q_rows = BLOCK * -(-n128 // mask.shape[-2])
-        out, _ = multilevel_attention(q, k, v, mask, q_rows=q_rows)
+    with tracing.span("asa.sparse"):
+        if isinstance(mask, (tuple, list)):
+            out, _ = multilevel_attention(q, k, v, lists=tuple(mask),
+                                          q_rows=cfg.multilevel_q_rows)
+            counts = mask[1]
+            _count_blocks(lambda: counts[..., 0].sum(),
+                          counts.shape[:-1].numel() * -(-k.shape[2] // BLOCK))
+        else:
+            n128 = -(-q.shape[2] // BLOCK)
+            q_rows = BLOCK * -(-n128 // mask.shape[-2])
+            out, _ = multilevel_attention(q, k, v, mask, q_rows=q_rows)
+            _count_blocks(lambda: (mask == 1).sum(), mask.numel())
     ratios = cfg.mask_ratios or M.DEFAULT_MASK_RATIOS
     density = sum((hi - lo) / lv for lv, (lo, hi) in ratios.items() if lv != 0)
     return out, 1.0 - density
+
+
+def _count_blocks(selected, total: int) -> None:
+    """Counts one ASA call: its level-1 (full-resolution) key blocks
+    selected (``selected()``, a device value) out of ``total``; a block
+    recomputed in a backward counts as ``asa.recomputed_calls`` alone."""
+    if not tracing.active():
+        return
+    if tracing.recomputing():
+        tracing.count("asa.recomputed_calls")
+        return
+    tracing.count("asa.calls")
+    tracing.count("asa.blocks_selected", selected())
+    tracing.count("asa.blocks_total", total)
 
 
 def asa_attention(

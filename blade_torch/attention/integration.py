@@ -18,6 +18,7 @@ import dataclasses
 import torch
 
 from blade_torch.attention.asa import ASAConfig, asa_attention
+from blade_torch.utils import tracing
 from blade_torch.utils.rng import fold_generator, make_generator
 
 __all__ = ["make_asa_attention_fn", "asa_model_kwargs", "stack_masks", "layer_mask"]
@@ -59,13 +60,14 @@ def make_asa_attention_fn(asa_cfg: ASAConfig):
 
     def attention_fn(q, k, v, *, generator=None, layer_index=0, masks=None,
                      collect_mask=False, **_):
-        if generator is None:
-            generator = make_generator(0, q.device)
-        gen = fold_generator(generator, layer_index)
-        mask = None if masks is None else layer_mask(masks, layer_index)
-        out, _, mask = asa_attention(q, k, v, asa_cfg, generator=gen, mask=mask,
-                                     return_mask=True)
-        out = out.to(q.dtype)
+        with tracing.span("asa"):
+            if generator is None:
+                generator = make_generator(0, q.device)
+            gen = fold_generator(generator, layer_index)
+            mask = None if masks is None else layer_mask(masks, layer_index)
+            out, _, mask = asa_attention(q, k, v, asa_cfg, generator=gen, mask=mask,
+                                         return_mask=True)
+            out = out.to(q.dtype)
         if collect_mask:
             return out, mask
         return out

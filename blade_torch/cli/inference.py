@@ -14,6 +14,14 @@ Examples:
       --random-init --prompt "a cat surfing" --steps 8 --output_dir outputs/
   python -m blade_torch.cli.inference --family cogvideox --tiny --random-init \\
       --device cpu --prompt "a cat surfing" --steps 2
+
+``--profile PATH`` runs the generation under ``torch.profiler`` with the
+port's tracing on (``blade_torch.utils.tracing``: the ``blade.*`` spans of
+the sampler, DiT, ASA and VAE) and writes the Chrome trace to ``PATH``
+(open it in Perfetto or ``chrome://tracing``; ``python -m
+bench_torch.harness.program_trace PATH`` reduces it to device seconds by
+span and the idle gaps).  Profile a second prompt to see a warm clip: the
+first call builds the kernels.
 """
 
 from __future__ import annotations
@@ -50,6 +58,9 @@ def get_args(argv=None):
                         "wan-14b-720p, cogvideox-5b-480p, wan-tiny, cogvideox-tiny")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda)")
+    p.add_argument("--profile", type=str, default=None, metavar="PATH",
+                   help="run under torch.profiler with the port's spans on and write "
+                        "the Chrome trace to PATH")
     return p.parse_args(argv)
 
 
@@ -89,6 +100,7 @@ def random_text_embeds(pipe, prompt: str) -> torch.Tensor:
 
 def main(argv=None):
     from blade_torch.utils.rng import make_generator
+    from blade_torch.utils.tracing import profile_to
     from blade_torch.utils.video_io import export_video
 
     args = get_args(argv)
@@ -101,18 +113,21 @@ def main(argv=None):
         raise SystemExit("need --prompt or --prompts")
     pipe = build_pipeline(args)
     os.makedirs(args.output_dir, exist_ok=True)
-    for i, prompt in enumerate(prompts):
-        try:
-            frames = pipe.generate(
-                random_text_embeds(pipe, prompt),
-                generator=make_generator(args.seed + i, pipe.device),
-                num_steps=args.steps, mask_refresh_every=args.mask_refresh_every)
-            path = os.path.join(args.output_dir, f"video_{i:04d}.mp4")
-            out = export_video(pipe.frames_to_uint8(frames[0]).cpu().numpy(), path,
-                               fps=pipe.preset.video.fps)
-            print(f"[{i + 1}/{len(prompts)}] {out}")
-        except Exception as e:  # per-prompt isolation (reference behaviour)
-            print(f"prompt {i} failed: {type(e).__name__}: {e}")
+    with profile_to(args.profile):
+        for i, prompt in enumerate(prompts):
+            try:
+                frames = pipe.generate(
+                    random_text_embeds(pipe, prompt),
+                    generator=make_generator(args.seed + i, pipe.device),
+                    num_steps=args.steps, mask_refresh_every=args.mask_refresh_every)
+                path = os.path.join(args.output_dir, f"video_{i:04d}.mp4")
+                out = export_video(pipe.frames_to_uint8(frames[0]).cpu().numpy(), path,
+                                   fps=pipe.preset.video.fps)
+                print(f"[{i + 1}/{len(prompts)}] {out}")
+            except Exception as e:  # per-prompt isolation (reference behaviour)
+                print(f"prompt {i} failed: {type(e).__name__}: {e}")
+    if args.profile:
+        print(f"wrote {args.profile}")
 
 
 if __name__ == "__main__":

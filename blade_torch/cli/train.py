@@ -18,6 +18,13 @@ Examples:
       --batch_size 1 --k_step 2 --max_train_steps 3 --output_dir runs/cog_tdm
   python -m blade_torch.cli.train --family wan --tiny --random-init \\
       --device cpu --max_train_steps 2 --batch_size 2 --output_dir /tmp/tdm
+
+``--profile PATH`` runs the training steps under ``torch.profiler`` with the
+port's tracing on (``blade_torch.utils.tracing``: ``blade.tdm.*`` phases,
+the DiT and ASA inside them, ``blade.sync`` at each host readback) and
+writes the Chrome trace to ``PATH`` (``python -m
+bench_torch.harness.program_trace PATH`` reduces it).  The first step
+builds the kernels: profile three or more to see a warm one.
 """
 
 from __future__ import annotations
@@ -87,6 +94,9 @@ def get_args(argv=None):
                    help="rematerialise each DiT block in the backward "
                         "(default: on for full-size presets)")
     p.add_argument("--device", type=str, default=None, help="torch device (default: cuda)")
+    p.add_argument("--profile", type=str, default=None, metavar="PATH",
+                   help="run the steps under torch.profiler with the port's spans on and "
+                        "write the Chrome trace to PATH")
     return p.parse_args(argv)
 
 
@@ -216,6 +226,7 @@ def main(argv=None, *, on_step=None):
     from blade_torch.training.checkpointing import CheckpointManager
     from blade_torch.training.lora import export_lora
     from blade_torch.utils.rng import fold_generator, make_generator
+    from blade_torch.utils.tracing import profile_to
 
     args = get_args(argv)
     _refuse_later_slices(args)
@@ -254,7 +265,8 @@ def main(argv=None, *, on_step=None):
           f"remat {model.remat}, device {device}")
     history = []
     t0 = time.perf_counter()
-    with open(os.path.join(args.output_dir, "metrics.jsonl"), "a") as metrics_log:
+    with open(os.path.join(args.output_dir, "metrics.jsonl"), "a") as metrics_log, \
+            profile_to(args.profile):
         for step_idx in range(state.step, args.max_train_steps):
             r = fold_generator(root, 1000 + step_idx)
             t_step = time.perf_counter()
@@ -278,6 +290,8 @@ def main(argv=None, *, on_step=None):
                 ckpt.save(step_idx + 1, state)
                 print(f"saved checkpoint @ {step_idx + 1}")
 
+    if args.profile:
+        print(f"wrote {args.profile}")
     out = os.path.join(args.output_dir, "tdm_lora.npz")
     np.savez(out, **export_lora(model, state.lora_g, alpha=cfg.lora_alpha,
                                 rank=cfg.lora_rank))

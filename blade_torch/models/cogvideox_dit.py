@@ -49,6 +49,7 @@ from blade_torch.models.layers import (
     rope_3d_tables,
     sinusoidal_timestep_embedding,
 )
+from blade_torch.utils import tracing
 
 __all__ = ["CogVideoXConfig", "CogVideoXModel", "COGVIDEOX_5B", "COGVIDEOX_TINY"]
 
@@ -121,16 +122,6 @@ class CogJointAttention(nn.Module):
     def forward(self, hidden, enc, cos, sin, attention_fn, attn_kwargs, text_last):
         c = self.c
         n_vid, n_txt = hidden.shape[1], enc.shape[1]
-        x = torch.cat([hidden, enc] if text_last else [enc, hidden], dim=1)
-        b, l, _ = x.shape
-        vid = slice(0, n_vid) if text_last else slice(n_txt, l)
-
-        def heads(t):
-            return t.reshape(b, l, c.num_heads, c.head_dim).transpose(1, 2)
-
-        v = heads(self.to_v(x))
-        q = self.norm_q(heads(self.to_q(x))).to(v.dtype)
-        k = self.norm_k(heads(self.to_k(x))).to(v.dtype)
 
         def rope_segment(t):
             t_vid = apply_rope_half(t[:, :, vid], cos, sin)
@@ -138,14 +129,27 @@ class CogJointAttention(nn.Module):
                 return torch.cat([t_vid, t[:, :, n_vid:]], dim=2)
             return torch.cat([t[:, :, :n_txt], t_vid], dim=2)
 
-        out = attention_fn(rope_segment(q), rope_segment(k), v.contiguous(), **attn_kwargs)
-        aux = None
-        if isinstance(out, tuple):
-            out, aux = out
-        out = self.to_out[0](out.transpose(1, 2).reshape(b, l, c.dim))
-        if text_last:
-            return out[:, :n_vid], out[:, n_vid:], aux
-        return out[:, n_txt:], out[:, :n_txt], aux
+        with tracing.span("dit.qkv"):
+            x = torch.cat([hidden, enc] if text_last else [enc, hidden], dim=1)
+            b, l, _ = x.shape
+            vid = slice(0, n_vid) if text_last else slice(n_txt, l)
+
+            def heads(t):
+                return t.reshape(b, l, c.num_heads, c.head_dim).transpose(1, 2)
+
+            v = heads(self.to_v(x))
+            q = rope_segment(self.norm_q(heads(self.to_q(x))).to(v.dtype))
+            k = rope_segment(self.norm_k(heads(self.to_k(x))).to(v.dtype))
+            v = v.contiguous()
+        with tracing.span("dit.self_attn"):
+            out = attention_fn(q, k, v, **attn_kwargs)
+            aux = None
+            if isinstance(out, tuple):
+                out, aux = out
+            out = self.to_out[0](out.transpose(1, 2).reshape(b, l, c.dim))
+            if text_last:
+                return out[:, :n_vid], out[:, n_vid:], aux
+            return out[:, n_txt:], out[:, :n_txt], aux
 
 
 class CogVideoXBlock(nn.Module):
@@ -159,16 +163,21 @@ class CogVideoXBlock(nn.Module):
 
     def forward(self, hidden, enc, temb, cos, sin, attention_fn, attn_kwargs, text_last):
         n_txt = enc.shape[1]
-        n_h, n_e, gate, e_gate = self.norm1(hidden, enc, temb, self.dtype)
-        attn_h, attn_e, aux = self.attn1(n_h, n_e, cos, sin, attention_fn, attn_kwargs,
-                                         text_last)
-        hidden = hidden + (gate * attn_h.float()).to(hidden.dtype)
-        enc = enc + (e_gate * attn_e.float()).to(enc.dtype)
-        n_h, n_e, gate, e_gate = self.norm2(hidden, enc, temb, self.dtype)
-        ff = self.ff(torch.cat([n_e, n_h], dim=1))
-        hidden = hidden + (gate * ff[:, n_txt:].float()).to(hidden.dtype)
-        enc = enc + (e_gate * ff[:, :n_txt].float()).to(enc.dtype)
-        return hidden, enc, aux
+        with tracing.span("dit.block"):
+            with tracing.span("dit.modulate"):
+                n_h, n_e, gate, e_gate = self.norm1(hidden, enc, temb, self.dtype)
+            attn_h, attn_e, aux = self.attn1(n_h, n_e, cos, sin, attention_fn, attn_kwargs,
+                                             text_last)
+            with tracing.span("dit.modulate"):
+                hidden = hidden + (gate * attn_h.float()).to(hidden.dtype)
+                enc = enc + (e_gate * attn_e.float()).to(enc.dtype)
+                n_h, n_e, gate, e_gate = self.norm2(hidden, enc, temb, self.dtype)
+            with tracing.span("dit.ffn"):
+                ff = self.ff(torch.cat([n_e, n_h], dim=1))
+            with tracing.span("dit.modulate"):
+                hidden = hidden + (gate * ff[:, n_txt:].float()).to(hidden.dtype)
+                enc = enc + (e_gate * ff[:, :n_txt].float()).to(enc.dtype)
+            return hidden, enc, aux
 
 
 class _PatchEmbed(nn.Module):
@@ -267,37 +276,42 @@ class CogVideoXModel(nn.Module):
         b, t, _, h, w = latents.shape
         p = c.patch_size
         gh, gw = h // p, w // p
-
-        x = self._patchify(latents)
-        enc = self.patch_embed.text_proj(text_embeds.to(self.dtype))
-        te = self.time_embedding
-        temb = te.linear_2(F.silu(te.linear_1(sinusoidal_timestep_embedding(timestep, c.dim))))
-
-        cos, sin = self._rope_tables((t, gh, gw), latents.device)
         text_last = self.token_perm is not None
-        if text_last:
-            x = x.index_select(1, self._perm_idx)
 
-        auxes = []
-        remat = self.remat and torch.is_grad_enabled()
-        for i, blk in enumerate(self.transformer_blocks):
-            args = (x, enc, temb, cos, sin, self.attention_fn,
-                    dict(attn_kwargs, layer_index=i), text_last)
-            x, enc, aux = checkpoint_block(blk, *args) if remat else blk(*args)
-            if aux is not None:
-                auxes.append(aux)
+        with tracing.span("dit"):
+            with tracing.span("dit.embed"):
+                x = self._patchify(latents)
+                enc = self.patch_embed.text_proj(text_embeds.to(self.dtype))
+                te = self.time_embedding
+                temb = te.linear_2(F.silu(te.linear_1(
+                    sinusoidal_timestep_embedding(timestep, c.dim))))
 
-        # joint LayerNorm over [text, video], then the AdaLN head
-        joint = _layer_norm(self.norm_final, torch.cat([enc, x], dim=1))
-        hidden = joint[:, enc.shape[1]:]
-        shift, scale = (m[:, None] for m in self.norm_out.linear(F.silu(temb)).chunk(2, dim=-1))
-        hidden = _layer_norm(self.norm_out.norm, hidden) * (1 + scale) + shift
-        out = self.proj_out(hidden.to(self.dtype).float())
-        if text_last:
-            out = out.index_select(1, self._inv_idx)
-        # proj_out features are channel-major (C, p, p), as in diffusers
-        out = out.reshape(b, t, gh, gw, c.out_channels, p, p)
-        out = out.permute(0, 1, 4, 2, 5, 3, 6).reshape(b, t, c.out_channels, h, w)
-        if collect:
-            return out, stack_masks(auxes)
-        return out
+                cos, sin = self._rope_tables((t, gh, gw), latents.device)
+                if text_last:
+                    x = x.index_select(1, self._perm_idx)
+
+            auxes = []
+            remat = self.remat and torch.is_grad_enabled()
+            for i, blk in enumerate(self.transformer_blocks):
+                args = (x, enc, temb, cos, sin, self.attention_fn,
+                        dict(attn_kwargs, layer_index=i), text_last)
+                x, enc, aux = checkpoint_block(blk, *args) if remat else blk(*args)
+                if aux is not None:
+                    auxes.append(aux)
+
+            with tracing.span("dit.head"):
+                # joint LayerNorm over [text, video], then the AdaLN head
+                joint = _layer_norm(self.norm_final, torch.cat([enc, x], dim=1))
+                hidden = joint[:, enc.shape[1]:]
+                shift, scale = (m[:, None]
+                                for m in self.norm_out.linear(F.silu(temb)).chunk(2, dim=-1))
+                hidden = _layer_norm(self.norm_out.norm, hidden) * (1 + scale) + shift
+                out = self.proj_out(hidden.to(self.dtype).float())
+                if text_last:
+                    out = out.index_select(1, self._inv_idx)
+                # proj_out features are channel-major (C, p, p), as in diffusers
+                out = out.reshape(b, t, gh, gw, c.out_channels, p, p)
+                out = out.permute(0, 1, 4, 2, 5, 3, 6).reshape(b, t, c.out_channels, h, w)
+            if collect:
+                return out, stack_masks(auxes)
+            return out

@@ -20,6 +20,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from blade_torch.utils import tracing
+
 __all__ = [
     "Linear",
     "PermutedLinear",
@@ -304,8 +306,16 @@ def checkpoint_block(blk: nn.Module, *args):
     explicitly: under an outer ``functional_call`` the recompute must see the
     substituted parameters, which are gone from the module by then.  Every
     random draw comes from an explicit generator, so the global RNG state
-    needs no stashing."""
+    needs no stashing.  Every call of the block after the first is the
+    backward's recomputation, marked so (``tracing.recompute``)."""
     state = dict(blk.named_parameters())
     state.update(blk.named_buffers())
-    return checkpoint(_call_block, blk, state, *args, use_reentrant=False,
+    calls = []
+
+    def call(*a):
+        with tracing.recompute(bool(calls)):
+            calls.append(None)
+            return _call_block(*a)
+
+    return checkpoint(call, blk, state, *args, use_reentrant=False,
                       preserve_rng_state=False)

@@ -14,6 +14,8 @@ from typing import Callable, Tuple, Union
 
 import torch
 
+from blade_torch.utils import tracing
+
 __all__ = ["uniform_tiling", "tiled_decode"]
 
 
@@ -52,10 +54,12 @@ def tiled_decode(
     _, _, h, w, _ = z.shape
     tile_h, tile_w = _pair(tile_latent)
     ov_h, ov_w = _pair(overlap)
-    rows = []
-    for i0 in range(0, max(h - ov_h, 1), tile_h - ov_h):
-        rows.append([decode_fn(z[:, :, i0:i0 + tile_h, j0:j0 + tile_w])
-                     for j0 in range(0, max(w - ov_w, 1), tile_w - ov_w)])
+    def tile(i0, j0):
+        with tracing.span("decode.tile"):
+            return decode_fn(z[:, :, i0:i0 + tile_h, j0:j0 + tile_w])
+
+    rows = [[tile(i0, j0) for j0 in range(0, max(w - ov_w, 1), tile_w - ov_w)]
+            for i0 in range(0, max(h - ov_h, 1), tile_h - ov_h)]
 
     def blend(a, b, dim, ov):
         ov *= spatial_factor

@@ -31,6 +31,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from blade_torch.models.layers import init_lecun_
+from blade_torch.utils import tracing
 
 __all__ = ["CogVideoXVAEConfig", "CogVideoXVAE", "COGVIDEOX_VAE_FULL", "COGVIDEOX_VAE_TINY",
            "chunked_decode"]
@@ -268,6 +269,7 @@ def chunked_decode(vae: CogVideoXVAE, z: torch.Tensor, *, frame_batch: int = 2):
     zc = z.permute(0, 4, 1, 2, 3)
     cache, pieces = None, []
     for s, e in zip(bounds[:-1], bounds[1:]):
-        piece, cache = vae.decode_with_cache(zc[:, :, s:e], cache)
-        pieces.append(piece.permute(0, 2, 3, 4, 1))
+        with tracing.span("decode.chunk"):
+            piece, cache = vae.decode_with_cache(zc[:, :, s:e], cache)
+            pieces.append(piece.permute(0, 2, 3, 4, 1))
     return torch.cat(pieces, dim=1)

@@ -26,6 +26,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from blade_torch.models.layers import init_lecun_
+from blade_torch.utils import tracing
 
 __all__ = ["WanVAEConfig", "WanVAE", "WAN21_VAE", "WAN21_VAE_TINY",
            "streaming_decode", "WAN21_LATENTS_MEAN", "WAN21_LATENTS_STD"]
@@ -304,6 +305,7 @@ def streaming_decode(vae: WanVAE, z: torch.Tensor):
     cache = None
     pieces = []
     for start in range(zc.shape[2]):
-        piece, cache = vae.decode_with_cache(zc[:, :, start:start + 1], cache)
-        pieces.append(piece.permute(0, 2, 3, 4, 1))
+        with tracing.span("decode.chunk"):
+            piece, cache = vae.decode_with_cache(zc[:, :, start:start + 1], cache)
+            pieces.append(piece.permute(0, 2, 3, 4, 1))
     return torch.cat(pieces, dim=1)

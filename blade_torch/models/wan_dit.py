@@ -47,6 +47,7 @@ from blade_torch.models.layers import (
     init_lecun_,
     rope_3d_tables,
 )
+from blade_torch.utils import tracing
 
 __all__ = ["WanConfig", "WanModel", "WAN_1_3B", "WAN_14B", "WAN_TINY"]
 
@@ -98,17 +99,19 @@ class WanSelfAttention(nn.Module):
     def forward(self, x, cos, sin, attention_fn, attn_kwargs):
         c = self.c
         b, l, _ = x.shape
-        q = norm_rope_heads(self.to_q(x), self.norm_q.weight.float(), cos, sin,
-                            c.num_heads, eps=c.eps)
-        k = norm_rope_heads(self.to_k(x), self.norm_k.weight.float(), cos, sin,
-                            c.num_heads, eps=c.eps)
-        v = self.to_v(x).reshape(b, l, c.num_heads, c.head_dim).transpose(1, 2).contiguous()
-        out = attention_fn(q, k, v, **attn_kwargs)
-        aux = None
-        if isinstance(out, tuple):
-            out, aux = out
-        out = out.transpose(1, 2).reshape(b, l, c.dim)
-        return self.to_out[0](out), aux
+        with tracing.span("dit.qkv"):
+            q = norm_rope_heads(self.to_q(x), self.norm_q.weight.float(), cos, sin,
+                                c.num_heads, eps=c.eps)
+            k = norm_rope_heads(self.to_k(x), self.norm_k.weight.float(), cos, sin,
+                                c.num_heads, eps=c.eps)
+            v = self.to_v(x).reshape(b, l, c.num_heads, c.head_dim).transpose(1, 2).contiguous()
+        with tracing.span("dit.self_attn"):
+            out = attention_fn(q, k, v, **attn_kwargs)
+            aux = None
+            if isinstance(out, tuple):
+                out, aux = out
+            out = out.transpose(1, 2).reshape(b, l, c.dim)
+            return self.to_out[0](out), aux
 
 
 class WanCrossAttention(nn.Module):
@@ -156,21 +159,29 @@ class WanBlock(nn.Module):
 
     def forward(self, x, context, temb6, cos, sin, attention_fn, attn_kwargs):
         c = self.c
-        e = (self.scale_shift_table + temb6).float()
-        shift1, scale1, gate1, shift2, scale2, gate2 = (e[:, i:i + 1] for i in range(6))
         dtype = x.dtype
-        h = _layer_norm(x, c.eps) * (1 + scale1) + shift1
-        attn, aux = self.attn1(h.to(dtype), cos, sin, attention_fn, attn_kwargs)
-        x = x + (gate1 * attn.float()).to(dtype)
-        norm_x = x.float()
-        if c.cross_attn_norm:
-            n2 = self.norm2
-            norm_x = F.layer_norm(norm_x, (c.dim,), n2.weight.float(), n2.bias.float(),
-                                  n2.eps)
-        x = x + self.attn2(norm_x.to(dtype), context).to(dtype)
-        h = _layer_norm(x, c.eps) * (1 + scale2) + shift2
-        x = x + (gate2 * self.ffn(h.to(dtype)).float()).to(dtype)
-        return x, aux
+        with tracing.span("dit.block"):
+            with tracing.span("dit.modulate"):
+                e = (self.scale_shift_table + temb6).float()
+                shift1, scale1, gate1, shift2, scale2, gate2 = (e[:, i:i + 1] for i in range(6))
+                h = _layer_norm(x, c.eps) * (1 + scale1) + shift1
+            attn, aux = self.attn1(h.to(dtype), cos, sin, attention_fn, attn_kwargs)
+            with tracing.span("dit.modulate"):
+                x = x + (gate1 * attn.float()).to(dtype)
+            with tracing.span("dit.cross_attn"):
+                norm_x = x.float()
+                if c.cross_attn_norm:
+                    n2 = self.norm2
+                    norm_x = F.layer_norm(norm_x, (c.dim,), n2.weight.float(), n2.bias.float(),
+                                          n2.eps)
+                x = x + self.attn2(norm_x.to(dtype), context).to(dtype)
+            with tracing.span("dit.modulate"):
+                h = (_layer_norm(x, c.eps) * (1 + scale2) + shift2).to(dtype)
+            with tracing.span("dit.ffn"):
+                f = self.ffn(h)
+            with tracing.span("dit.modulate"):
+                x = x + (gate2 * f.float()).to(dtype)
+            return x, aux
 
 
 class _TextEmbedder(nn.Module):
@@ -268,33 +279,36 @@ class WanModel(nn.Module):
         pt, ph, pw = c.patch_size
         gt, gh, gw = t // pt, h // ph, w // pw
 
-        x = self._patchify(latents)
-        ce = self.condition_embedder
-        ctx = ce.text_embedder(text_embeds.to(self.dtype))
-        temb = ce.time_embedder(timestep)
-        temb6 = ce.time_proj(F.silu(temb)).reshape(b, 6, c.dim)
+        with tracing.span("dit"):
+            with tracing.span("dit.embed"):
+                x = self._patchify(latents)
+                ce = self.condition_embedder
+                ctx = ce.text_embedder(text_embeds.to(self.dtype))
+                temb = ce.time_embedder(timestep)
+                temb6 = ce.time_proj(F.silu(temb)).reshape(b, 6, c.dim)
 
-        cos, sin = self._rope_tables((gt, gh, gw), latents.device)
-        if self.token_perm is not None:
-            x = x.index_select(1, self._perm_idx)
+                cos, sin = self._rope_tables((gt, gh, gw), latents.device)
+                if self.token_perm is not None:
+                    x = x.index_select(1, self._perm_idx)
 
-        auxes = []
-        remat = self.remat and torch.is_grad_enabled()
-        for i, blk in enumerate(self.blocks):
-            args = (x, ctx, temb6, cos, sin, self.attention_fn,
-                    dict(attn_kwargs, layer_index=i))
-            x, aux = checkpoint_block(blk, *args) if remat else blk(*args)
-            if aux is not None:
-                auxes.append(aux)
+            auxes = []
+            remat = self.remat and torch.is_grad_enabled()
+            for i, blk in enumerate(self.blocks):
+                args = (x, ctx, temb6, cos, sin, self.attention_fn,
+                        dict(attn_kwargs, layer_index=i))
+                x, aux = checkpoint_block(blk, *args) if remat else blk(*args)
+                if aux is not None:
+                    auxes.append(aux)
 
-        e = (self.scale_shift_table + temb[:, None, :]).float()
-        shift, scale = e[:, 0:1], e[:, 1:2]
-        xh = _layer_norm(x, c.eps) * (1 + scale) + shift
-        out = self.proj_out(xh.to(self.dtype).float())
-        if self.token_perm is not None:
-            out = out.index_select(1, self._inv_idx)
-        out = out.reshape(b, gt, gh, gw, pt, ph, pw, c.out_channels)
-        out = out.permute(0, 7, 1, 4, 2, 5, 3, 6).reshape(b, c.out_channels, t, h, w)
-        if collect:
-            return out, stack_masks(auxes)
-        return out
+            with tracing.span("dit.head"):
+                e = (self.scale_shift_table + temb[:, None, :]).float()
+                shift, scale = e[:, 0:1], e[:, 1:2]
+                xh = _layer_norm(x, c.eps) * (1 + scale) + shift
+                out = self.proj_out(xh.to(self.dtype).float())
+                if self.token_perm is not None:
+                    out = out.index_select(1, self._inv_idx)
+                out = out.reshape(b, gt, gh, gw, pt, ph, pw, c.out_channels)
+                out = out.permute(0, 7, 1, 4, 2, 5, 3, 6).reshape(b, c.out_channels, t, h, w)
+            if collect:
+                return out, stack_masks(auxes)
+            return out

@@ -24,12 +24,19 @@ import torch
 from blade_torch.schedulers import ddpm as D
 from blade_torch.schedulers import unipc_flow as F
 from blade_torch.schedulers.cogvideox_dpm import dpm_init, dpm_step, make_dpm_schedule
+from blade_torch.utils import tracing
 from blade_torch.utils.rng import fold_generator
 
 __all__ = ["sample_wan", "wan_stepper", "wan_stepper_reuse", "sample_cogvideox",
            "cog_stepper", "cog_stepper_reuse"]
 
 ModelFn = Callable[..., torch.Tensor]
+
+
+def _update(step_fn, *args):
+    """A scheduler's update (``unipc_step`` / ``dpm_step``) in its span."""
+    with tracing.span("sample.update"):
+        return step_fn(*args)
 
 
 def _timestep(sched, i, x):
@@ -48,7 +55,7 @@ def wan_stepper(model_fn: ModelFn, *, num_steps: int = 8, flow_shift: float = 3.
     def step(state, i, text_embeds, generator):
         t = _timestep(sched, i, state.x)
         v = model_fn(state.x, t, text_embeds, fold_generator(generator, i))
-        return F.unipc_step(sched, state, v.float(), i)
+        return _update(F.unipc_step, sched, state, v.float(), i)
 
     return init, step
 
@@ -66,12 +73,12 @@ def wan_stepper_reuse(model_fn: ModelFn, *, num_steps: int = 8, flow_shift: floa
         t = _timestep(sched, i, state.x)
         v, masks = model_fn(state.x, t, text_embeds, fold_generator(generator, i),
                             collect_mask=True)
-        return F.unipc_step(sched, state, v.float(), i), masks
+        return _update(F.unipc_step, sched, state, v.float(), i), masks
 
     def reuse(state, masks, i, text_embeds, generator):
         t = _timestep(sched, i, state.x)
         v = model_fn(state.x, t, text_embeds, fold_generator(generator, i), masks=masks)
-        return F.unipc_step(sched, state, v.float(), i)
+        return _update(F.unipc_step, sched, state, v.float(), i)
 
     return init, refresh, reuse
 
@@ -97,16 +104,18 @@ def sample_wan(
                                                  flow_shift=flow_shift)
         state, masks = init(noise), None
         for i in range(num_steps):
-            if i % mask_refresh_every == 0:
-                state, masks = refresh(state, i, text_embeds, generator)
-            else:
-                state = reuse(state, masks, i, text_embeds, generator)
+            with tracing.span("sample.step"):
+                if i % mask_refresh_every == 0:
+                    state, masks = refresh(state, i, text_embeds, generator)
+                else:
+                    state = reuse(state, masks, i, text_embeds, generator)
         return state.x
 
     init, step = wan_stepper(model_fn, num_steps=num_steps, flow_shift=flow_shift)
     state = init(noise)
     for i in range(num_steps):
-        state = step(state, i, text_embeds, generator)
+        with tracing.span("sample.step"):
+            state = step(state, i, text_embeds, generator)
     return state.x
 
 
@@ -131,7 +140,7 @@ def cog_stepper(model_fn: ModelFn, *, num_steps: int = 8, ddpm_schedule=None):
         t = _timestep(sched, i, state.x)
         v = model_fn(state.x, t, text_embeds, fold_generator(generator, i))
         xi = _sde_noise(state.x, generator, i) if xi is None else xi
-        return dpm_step(sched, state, v.float(), i, xi)
+        return _update(dpm_step, sched, state, v.float(), i, xi)
 
     return init, step
 
@@ -149,13 +158,13 @@ def cog_stepper_reuse(model_fn: ModelFn, *, num_steps: int = 8, ddpm_schedule=No
         v, masks = model_fn(state.x, t, text_embeds, fold_generator(generator, i),
                             collect_mask=True)
         xi = _sde_noise(state.x, generator, i) if xi is None else xi
-        return dpm_step(sched, state, v.float(), i, xi), masks
+        return _update(dpm_step, sched, state, v.float(), i, xi), masks
 
     def reuse(state, masks, i, text_embeds, generator, xi=None):
         t = _timestep(sched, i, state.x)
         v = model_fn(state.x, t, text_embeds, fold_generator(generator, i), masks=masks)
         xi = _sde_noise(state.x, generator, i) if xi is None else xi
-        return dpm_step(sched, state, v.float(), i, xi)
+        return _update(dpm_step, sched, state, v.float(), i, xi)
 
     return init, refresh, reuse
 
@@ -178,13 +187,15 @@ def sample_cogvideox(
                                                  ddpm_schedule=ddpm_schedule)
         state, masks = init(noise), None
         for i in range(num_steps):
-            if i % mask_refresh_every == 0:
-                state, masks = refresh(state, i, text_embeds, generator)
-            else:
-                state = reuse(state, masks, i, text_embeds, generator)
+            with tracing.span("sample.step"):
+                if i % mask_refresh_every == 0:
+                    state, masks = refresh(state, i, text_embeds, generator)
+                else:
+                    state = reuse(state, masks, i, text_embeds, generator)
         return state.x
     init, step = cog_stepper(model_fn, num_steps=num_steps, ddpm_schedule=ddpm_schedule)
     state = init(noise)
     for i in range(num_steps):
-        state = step(state, i, text_embeds, generator)
+        with tracing.span("sample.step"):
+            state = step(state, i, text_embeds, generator)
     return state.x

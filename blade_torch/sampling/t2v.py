@@ -23,6 +23,7 @@ from blade_torch.models.vae_wan import WanVAE, streaming_decode
 from blade_torch.models.wan_dit import WanModel
 from blade_torch.sampling.pipeline import sample_cogvideox, sample_wan
 from blade_torch.schedulers.ddpm import make_ddpm_schedule
+from blade_torch.utils import tracing
 from blade_torch.utils.rng import fold_generator
 
 __all__ = ["T2VPipeline"]
@@ -106,20 +107,23 @@ class T2VPipeline:
     @torch.inference_mode()
     def sample_latents(self, text_embeds, *, generator: torch.Generator,
                        num_steps: int = 8, mask_refresh_every: int = 0):
-        b = text_embeds.shape[0]
-        noise = torch.randn(self.latent_shape(b), generator=fold_generator(generator, 0),
-                            device=self.device, dtype=torch.float32).to(self.dtype)
-        refresh = mask_refresh_every if self.sparse else 0
-        p = self.preset
-        if p.name == "wan":
-            return sample_wan(self.model_fn(), noise, text_embeds, generator=generator,
-                              num_steps=num_steps, flow_shift=p.flow_shift or 3.0,
-                              mask_refresh_every=refresh)
-        return sample_cogvideox(
-            self.model_fn(), noise, text_embeds, generator=generator, num_steps=num_steps,
-            ddpm_schedule=make_ddpm_schedule(snr_shift_scale=p.snr_shift_scale,
-                                             rescale_betas_zero_snr=p.rescale_betas_zero_snr),
-            mask_refresh_every=refresh)
+        with tracing.timed("sample"):
+            b = text_embeds.shape[0]
+            noise = torch.randn(self.latent_shape(b), generator=fold_generator(generator, 0),
+                                device=self.device, dtype=torch.float32).to(self.dtype)
+            refresh = mask_refresh_every if self.sparse else 0
+            p = self.preset
+            if p.name == "wan":
+                return sample_wan(self.model_fn(), noise, text_embeds, generator=generator,
+                                  num_steps=num_steps, flow_shift=p.flow_shift or 3.0,
+                                  mask_refresh_every=refresh)
+            return sample_cogvideox(
+                self.model_fn(), noise, text_embeds, generator=generator,
+                num_steps=num_steps,
+                ddpm_schedule=make_ddpm_schedule(
+                    snr_shift_scale=p.snr_shift_scale,
+                    rescale_betas_zero_snr=p.rescale_betas_zero_snr),
+                mask_refresh_every=refresh)
 
     @torch.inference_mode()
     def decode_latents(self, latents):
@@ -128,6 +132,10 @@ class T2VPipeline:
         CogVideoX (more than 3 latent frames): ``frame_batch=2`` chunks, in
         uniform spatial tiles of at most 20 latent pixels once the frame
         holds 1024 latent pixels or more (JAX's decode path)."""
+        with tracing.timed("decode"):
+            return self._decode(latents)
+
+    def _decode(self, latents):
         vae_cfg = self.preset.vae
         if self.preset.name == "wan":
             z = latents.permute(0, 2, 3, 4, 1)  # BCTHW -> BTHWC

@@ -33,6 +33,7 @@ from blade_torch.schedulers import unipc_flow as F
 from blade_torch.training import lora as lora_lib
 from blade_torch.training.lr_schedules import make_lr_schedule
 from blade_torch.training.optim import AdamConfig, adam_init, adam_update
+from blade_torch.utils import tracing
 from blade_torch.utils.rng import fold_generator
 
 __all__ = [
@@ -249,19 +250,21 @@ def k_step_trajectory(model_apply: ModelApply, params, family: DiffusionFamily,
     ``noisy[K]`` the final x0; both in ``noise``'s dtype."""
     b = noise.shape[0]
     delta = total_steps // k_step
-    t = torch.full((b,), total_steps - 1, dtype=torch.long, device=noise.device)
-    x = noise
-    x0s, noisys = [], []
-    for k in range(k_step):
-        out = model_apply(params, x, t.float(), text_embeds, generators[k])
-        x0 = family.pred_x0(out, x, t)
-        eps_hat = family.pred_eps(x0, x, t)
-        eps_mix = eta * eps_hat + math.sqrt(max(1.0 - eta ** 2, 0.0)) * xis[k].to(eps_hat.dtype)
-        x_next = family.add_noise(x0, eps_mix, torch.clamp(t - delta, min=0)).to(x.dtype)
-        x0s.append(x0.to(x.dtype))
-        noisys.append(x)
-        x, t = x_next, t - delta
-    return torch.stack(x0s), torch.stack(noisys + [x0s[-1]])
+    with tracing.span("tdm.rollout"):
+        t = torch.full((b,), total_steps - 1, dtype=torch.long, device=noise.device)
+        x = noise
+        x0s, noisys = [], []
+        for k in range(k_step):
+            out = model_apply(params, x, t.float(), text_embeds, generators[k])
+            x0 = family.pred_x0(out, x, t)
+            eps_hat = family.pred_eps(x0, x, t)
+            eps_mix = (eta * eps_hat
+                       + math.sqrt(max(1.0 - eta ** 2, 0.0)) * xis[k].to(eps_hat.dtype))
+            x_next = family.add_noise(x0, eps_mix, torch.clamp(t - delta, min=0)).to(x.dtype)
+            x0s.append(x0.to(x.dtype))
+            noisys.append(x)
+            x, t = x_next, t - delta
+        return torch.stack(x0s), torch.stack(noisys + [x0s[-1]])
 
 
 def make_tdm_train_step(model_apply: ModelApply, family: DiffusionFamily, cfg: TDMConfig):
@@ -281,7 +284,8 @@ def make_tdm_train_step(model_apply: ModelApply, family: DiffusionFamily, cfg: T
     def merge(base, adapter):
         if cfg.train_full_model:
             return adapter  # the adapters ARE the full parameters
-        return lora_lib.merge_lora(base, adapter, alpha=cfg.lora_alpha, rank=cfg.lora_rank)
+        with tracing.span("tdm.merge"):
+            return lora_lib.merge_lora(base, adapter, alpha=cfg.lora_alpha, rank=cfg.lora_rank)
 
     def predict_x0(params, x_t, t, text, gen, guidance=None, uncond=None):
         x0 = family.pred_x0(model_apply(params, x_t, t.float(), text, gen), x_t, t)
@@ -297,10 +301,19 @@ def make_tdm_train_step(model_apply: ModelApply, family: DiffusionFamily, cfg: T
         return family.renoise(ode_noisy, xi2.to(m_eps.dtype), t_mid, t)
 
     def grads_of(loss, leaves: Tensors) -> Tensors:
-        return dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        with tracing.span("tdm.backward"):
+            return dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+    def adam(params, grads, opt_state, opt_cfg):
+        with tracing.span("tdm.adam"):
+            return adam_update(params, grads, opt_state, opt_cfg)
 
     def train_step(state: TDMState, batch, generator: Optional[torch.Generator] = None, *,
                    draws: Optional[TDMDraws] = None):
+        with tracing.span("tdm.step"):
+            return step(state, batch, generator, draws)
+
+    def step(state, batch, generator, draws):
         text, uncond, noise = batch["text_embeds"], batch["uncond_embeds"], batch["noise"]
         b, ndim = noise.shape[0], noise.dim()
         if draws is None:
@@ -326,66 +339,68 @@ def make_tdm_train_step(model_apply: ModelApply, family: DiffusionFamily, cfg: T
             return lat, t_g, t_mid, t
 
         # ---- (2) fake-score update ---------------------------------------
-        with torch.no_grad():
-            lat_ode, t_g, t_mid, t = distill_points(draws.fake_ind, draws.fake_u)
-            m_lat = family.pred_x0(model_apply(student, lat_ode, t_g.float(), text,
-                                               draws.student), lat_ode, t_g)
-            m_eps = family.pred_eps(m_lat, lat_ode, t_g)
-            noisy_t = renoised(m_lat, m_eps, draws.fake_xi, draws.fake_xi2, t_mid, t)
-            w = 1.0 / torch.clamp(family.sigma_at(t, ndim) ** 2, min=1e-8)
-            x0_real = (predict_x0(state.base, noisy_t, t, text, draws.teacher)
-                       if cfg.lambda_reg > 0 else None)
-        del student
-        leaves_f = {k: v.detach().requires_grad_(True) for k, v in state.lora_f.items()}
-        with torch.enable_grad():
-            x0_f = predict_x0(merge(state.base, leaves_f), noisy_t, t, text, draws.teacher)
-            loss_f = torch.mean(w * (x0_f - m_lat) ** 2)
-            if x0_real is not None:
-                loss_f = loss_f + cfg.lambda_reg * torch.mean(w * (x0_f - x0_real) ** 2)
-            grads_f = grads_of(loss_f, leaves_f)
-        del x0_f, leaves_f
-        loss_fake = float(loss_f.detach())
-        lora_f, opt_f_state = adam_update(state.lora_f, grads_f, state.opt_f, opt_f)
-        fake_skipped = cfg.fake_loss_skip_threshold is not None and not (
-            loss_fake < cfg.fake_loss_skip_threshold)
-        if fake_skipped:
-            # skip the whole update: adapter and optimizer state roll back
-            lora_f, opt_f_state = state.lora_f, state.opt_f
-        del grads_f
+        with tracing.span("tdm.fake"):
+            with torch.no_grad():
+                lat_ode, t_g, t_mid, t = distill_points(draws.fake_ind, draws.fake_u)
+                m_lat = family.pred_x0(model_apply(student, lat_ode, t_g.float(), text,
+                                                   draws.student), lat_ode, t_g)
+                m_eps = family.pred_eps(m_lat, lat_ode, t_g)
+                noisy_t = renoised(m_lat, m_eps, draws.fake_xi, draws.fake_xi2, t_mid, t)
+                w = 1.0 / torch.clamp(family.sigma_at(t, ndim) ** 2, min=1e-8)
+                x0_real = (predict_x0(state.base, noisy_t, t, text, draws.teacher)
+                           if cfg.lambda_reg > 0 else None)
+            del student
+            leaves_f = {k: v.detach().requires_grad_(True) for k, v in state.lora_f.items()}
+            with torch.enable_grad():
+                x0_f = predict_x0(merge(state.base, leaves_f), noisy_t, t, text, draws.teacher)
+                loss_f = torch.mean(w * (x0_f - m_lat) ** 2)
+                if x0_real is not None:
+                    loss_f = loss_f + cfg.lambda_reg * torch.mean(w * (x0_f - x0_real) ** 2)
+                grads_f = grads_of(loss_f, leaves_f)
+            del x0_f, leaves_f
+            loss_fake = tracing.readback(loss_f.detach())
+            lora_f, opt_f_state = adam(state.lora_f, grads_f, state.opt_f, opt_f)
+            fake_skipped = cfg.fake_loss_skip_threshold is not None and not (
+                loss_fake < cfg.fake_loss_skip_threshold)
+            if fake_skipped:
+                # skip the whole update: adapter and optimizer state roll back
+                lora_f, opt_f_state = state.lora_f, state.opt_f
+            del grads_f
 
         # ---- (3) generator update ----------------------------------------
-        lat_ode, t_g, t_mid, t2 = distill_points(draws.gen_ind, draws.gen_u)
-        leaves_g = {k: v.detach().requires_grad_(True) for k, v in state.lora_g.items()}
-        with torch.enable_grad():
-            out = model_apply(merge(state.base, leaves_g), lat_ode, t_g.float(), text,
-                              draws.generator)
-            model_latents = family.pred_x0(out, lat_ode, t_g)
-        with torch.no_grad():
-            # revised target: student + teacher(cfg) - fake, all stopped
-            ml = model_latents.detach()
-            noisy_t2 = renoised(ml, family.pred_eps(ml, lat_ode, t_g), draws.gen_xi,
-                                draws.gen_xi2, t_mid, t2)
-            real = predict_x0(state.base, noisy_t2, t2, text, draws.teacher,
-                              guidance=cfg.cfg, uncond=uncond)
-            fake = predict_x0(merge(state.base, lora_f), noisy_t2, t2, text, draws.teacher)
-            revised = ml + real - fake
-        numel = float(np.prod(noise.shape[1:]))
-        c = cfg.huber_c if cfg.huber_c is not None else 1e-3 / (128.0 * math.sqrt(numel))
-        with torch.enable_grad():
-            ml32 = model_latents.float()
-            huber = torch.sqrt((ml32 - revised.float()) ** 2 + c ** 2) - c
-            if cfg.use_weighting_factor:
-                wf = torch.mean(torch.abs(ml32.detach() - real.float()),
-                                dim=tuple(range(1, ndim)), keepdim=True)
-                huber = huber / torch.clamp(wf, max=5.0)
-            loss_g = torch.mean(huber)
-            grads_g = grads_of(loss_g, leaves_g)
-        del leaves_g, out, model_latents, ml32, huber
-        lora_g, opt_g_state = adam_update(state.lora_g, grads_g, state.opt_g, opt_g)
+        with tracing.span("tdm.generator"):
+            lat_ode, t_g, t_mid, t2 = distill_points(draws.gen_ind, draws.gen_u)
+            leaves_g = {k: v.detach().requires_grad_(True) for k, v in state.lora_g.items()}
+            with torch.enable_grad():
+                out = model_apply(merge(state.base, leaves_g), lat_ode, t_g.float(), text,
+                                  draws.generator)
+                model_latents = family.pred_x0(out, lat_ode, t_g)
+            with torch.no_grad():
+                # revised target: student + teacher(cfg) - fake, all stopped
+                ml = model_latents.detach()
+                noisy_t2 = renoised(ml, family.pred_eps(ml, lat_ode, t_g), draws.gen_xi,
+                                    draws.gen_xi2, t_mid, t2)
+                real = predict_x0(state.base, noisy_t2, t2, text, draws.teacher,
+                                  guidance=cfg.cfg, uncond=uncond)
+                fake = predict_x0(merge(state.base, lora_f), noisy_t2, t2, text, draws.teacher)
+                revised = ml + real - fake
+            numel = float(np.prod(noise.shape[1:]))
+            c = cfg.huber_c if cfg.huber_c is not None else 1e-3 / (128.0 * math.sqrt(numel))
+            with torch.enable_grad():
+                ml32 = model_latents.float()
+                huber = torch.sqrt((ml32 - revised.float()) ** 2 + c ** 2) - c
+                if cfg.use_weighting_factor:
+                    wf = torch.mean(torch.abs(ml32.detach() - real.float()),
+                                    dim=tuple(range(1, ndim)), keepdim=True)
+                    huber = huber / torch.clamp(wf, max=5.0)
+                loss_g = torch.mean(huber)
+                grads_g = grads_of(loss_g, leaves_g)
+            del leaves_g, out, model_latents, ml32, huber
+            lora_g, opt_g_state = adam(state.lora_g, grads_g, state.opt_g, opt_g)
 
         new_state = TDMState(step=state.step + 1, base=state.base, lora_g=lora_g,
                              lora_f=lora_f, opt_g=opt_g_state, opt_f=opt_f_state)
-        metrics = {"loss_fake": loss_fake, "loss_du": float(loss_g.detach()),
+        metrics = {"loss_fake": loss_fake, "loss_du": tracing.readback(loss_g.detach()),
                    "fake_skipped": fake_skipped}
         if lr_sched is not None:
             metrics["lr"] = lr_sched(state.step // cfg.grad_accum)

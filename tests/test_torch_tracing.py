@@ -1,0 +1,196 @@
+"""The port's spans and counters (``blade_torch.utils.tracing``) on the CPU.
+
+* Off (no profiler recording): ``span`` hands out one shared
+  ``nullcontext``, nothing of ``torch.profiler`` runs and nothing is
+  counted, through a whole generation.
+* Under a CPU ``torch.profiler``: one ``generate`` of the tiny Wan (energy
+  lane) and CogVideoX (multilevel lane) presets, at a video large enough to
+  leave blocks unselected and to chunk and tile the decode, opens every
+  span of its layers, each inside the span the module doc lists as its
+  parent; ``blade.dit`` runs once a step and ``blade.asa`` once a layer a
+  step; the ASA counters give the mean density of the masks the model's
+  ``collect_mask`` protocol returns in the same run.
+* One tiny TDM step with remat: the ``tdm.*`` phases, two host readbacks,
+  and the blocks recomputed in the backward kept out of the forward's
+  counters.
+* ``--profile PATH`` of the inference CLI writes a Chrome trace holding the
+  spans.
+"""
+
+import dataclasses
+import json
+
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from blade_torch import config as C
+from blade_torch.cli import inference as tcli
+from blade_torch.cli import train as T
+from blade_torch.sampling.t2v import T2VPipeline
+from blade_torch.training import tdm
+from blade_torch.utils import tracing
+from blade_torch.utils.rng import fold_generator, make_generator
+
+STEPS = 2
+# A span's parent: the innermost other ``blade.*`` span around it on its thread.
+PARENTS = {
+    "sample": {None}, "sample.step": {"sample"}, "sample.update": {"sample.step"},
+    "dit": {"sample.step"}, "dit.embed": {"dit"}, "dit.block": {"dit"}, "dit.head": {"dit"},
+    "dit.modulate": {"dit.block"}, "dit.qkv": {"dit.block"}, "dit.self_attn": {"dit.block"},
+    "dit.cross_attn": {"dit.block"}, "dit.ffn": {"dit.block"},
+    "asa": {"dit.self_attn"}, "asa.predict": {"asa"}, "asa.select": {"asa"},
+    "asa.sparse": {"asa"}, "asa.pooled": {"asa"}, "asa.merge": {"asa"},
+    "decode": {None}, "decode.tile": {"decode"}, "decode.chunk": {"decode", "decode.tile"},
+}
+LANES = {
+    "wan": (C.WAN_TINY_PRESET, "energy", {"dit.cross_attn", "asa.pooled", "asa.merge"}),
+    "cogvideox": (C.COGVIDEOX_TINY_PRESET, "multilevel", {"decode.tile"}),
+}
+
+
+@pytest.fixture(autouse=True)
+def _fresh():
+    tracing.reset()
+    yield
+    tracing.reset()
+
+
+def _pipe(family):
+    preset, mode, _ = LANES[family]
+    # 5 x 16 x 16 latent tokens (10 key blocks); CogVideoX's 32 x 32 latent
+    # frames take the tiled decode.
+    preset = dataclasses.replace(preset, video=C.VideoSpec(9, 64, 64, fps=4))
+    return T2VPipeline.random_init(preset, make_generator(0), mask_mode=mode,
+                                   dtype=torch.float32)
+
+
+def _text(pipe):
+    p = pipe.preset
+    return torch.randn((1, p.max_text_len, p.text_dim), generator=make_generator(1))
+
+
+def _spans(prof, tmp_path):
+    """``[(name without "blade.", start, end, thread)]`` of the trace."""
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    return [(e["name"][len(tracing.PREFIX):], float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+             e["tid"]) for e in events
+            if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+            and e["name"].startswith(tracing.PREFIX)]
+
+
+def _parent(spans, s):
+    around = [o for o in spans if o is not s and o[3] == s[3] and o[1] <= s[1]
+              and s[2] <= o[2] and o[2] - o[1] >= s[2] - s[1]]
+    return min(around, key=lambda o: o[2] - o[1])[0] if around else None
+
+
+def _collecting(pipe, kept):
+    """The model's ``attention_fn`` with every mask kept (``collect_mask``)."""
+    fn = pipe.dit.attention_fn
+
+    def attention_fn(q, k, v, **kw):
+        out, mask = fn(q, k, v, **dict(kw, collect_mask=True))
+        kept.append((mask, k.shape[2]))
+        return out
+
+    pipe.dit.attention_fn = attention_fn
+
+
+def _density(mask, lk):
+    if isinstance(mask, tuple):  # the multilevel lane's (idx, counts) lists
+        return mask[1][..., 0].double().mean() / -(-lk // 128)
+    return mask.double().mean()
+
+
+def test_off_spans_are_one_nullcontext_and_nothing_is_counted(monkeypatch):
+    def refuse(*a, **kw):
+        raise AssertionError("torch.profiler.record_function called with tracing off")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    assert not tracing.active()
+    first = tracing.span("dit")
+    assert tracing.span("asa") is first and tracing.timed("sample") is first
+    assert tracing.recompute(True) is first
+    pipe = _pipe("wan")
+    pipe.generate(_text(pipe), generator=make_generator(2), num_steps=1)
+    tracing.count("asa.calls")
+    assert tracing.readback(torch.tensor(2.5)) == 2.5
+    assert tracing.counters() == {}
+
+
+@pytest.mark.parametrize("family", sorted(LANES))
+def test_generate_opens_every_span_nested_and_counts_the_masks_density(family, tmp_path):
+    pipe = _pipe(family)
+    kept = []
+    _collecting(pipe, kept)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        frames = pipe.generate(_text(pipe), generator=make_generator(2), num_steps=STEPS)
+    assert torch.isfinite(frames).all()
+    spans = _spans(prof, tmp_path)
+    names = [s[0] for s in spans]
+    want = set(PARENTS) - {n for f, (_, _, only) in LANES.items() if f != family for n in only}
+    assert set(names) == want
+    for s in spans:
+        assert _parent(spans, s) in PARENTS[s[0]], s
+    layers = pipe.preset.dit.num_layers
+    assert names.count("sample") == names.count("decode") == 1
+    assert names.count("sample.step") == names.count("dit") == STEPS
+    assert names.count("dit.block") == names.count("asa") == STEPS * layers
+
+    got = tracing.counters()
+    assert got["asa.calls"] == len(kept) == STEPS * layers
+    densities = torch.stack([_density(m, lk) for m, lk in kept])
+    assert 0.0 < float(densities.mean()) < 1.0
+    assert got["asa.blocks_selected"] / got["asa.blocks_total"] == pytest.approx(
+        float(densities.mean()), rel=1e-6)
+    assert 0.0 < got["sample.seconds"] and 0.0 < got["decode.seconds"]
+    assert "host_syncs" not in got and "asa.recomputed_calls" not in got
+
+
+def test_tdm_step_opens_its_phases_counts_two_readbacks_and_leaves_out_recomputed_asa(
+        tmp_path):
+    args = T.get_args(["--family", "wan", "--tiny", "--random-init", "--remat",
+                       "--output_dir", str(tmp_path), "--batch_size", "1", "--k_step", "2",
+                       "--device", "cpu"])
+    preset = T.build_preset(args)
+    model = T.build_model(args, preset, torch.device("cpu"))
+    assert model.remat
+    cfg = T.tdm_config(args)
+    root = make_generator(args.seed)
+    state = tdm.create_tdm_state(fold_generator(root, 1),
+                                 {n: p.detach() for n, p in model.named_parameters()}, cfg)
+    step = tdm.make_tdm_train_step(T.model_apply_fn(model),
+                                   T.diffusion_family(preset, torch.device("cpu")), cfg)
+    text = torch.randn((1, preset.max_text_len, preset.text_dim), generator=make_generator(3))
+    batch = {"text_embeds": text, "uncond_embeds": torch.zeros_like(text),
+             "noise": torch.randn(T.latent_shape(preset, 1), generator=make_generator(4))}
+    grads = []  # a model forward's grad mode, one entry each
+    model.register_forward_pre_hook(lambda m, a: grads.append(torch.is_grad_enabled()))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        state, metrics = step(state, batch, root)
+    assert metrics["loss_fake"] == metrics["loss_fake"]  # a finite float
+    names = {s[0] for s in _spans(prof, tmp_path)}
+    assert {"tdm.step", "tdm.rollout", "tdm.merge", "tdm.fake", "tdm.generator",
+            "tdm.backward", "tdm.adam", "sync", "dit", "dit.block", "asa"} <= names
+
+    got = tracing.counters()
+    layers = preset.dit.num_layers
+    assert got["host_syncs"] == 2
+    assert got["asa.calls"] == len(grads) * layers
+    # the two backwards recompute every block once
+    assert sum(grads) == 2 and got["asa.recomputed_calls"] == 2 * layers
+    assert 0 < got["asa.blocks_selected"] <= got["asa.blocks_total"]
+
+
+def test_inference_cli_profile_writes_a_trace_with_the_spans(tmp_path):
+    trace = tmp_path / "trace.json"
+    tcli.main(["--family", "wan", "--tiny", "--random-init", "--device", "cpu", "--prompt",
+               "a cat surfing", "--steps", "1", "--output_dir", str(tmp_path / "out"),
+               "--profile", str(trace)])
+    events = json.loads(trace.read_text())["traceEvents"]
+    names = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"blade.sample", "blade.dit", "blade.asa", "blade.decode"} <= names
+    assert not tracing.active()
