@@ -16,8 +16,9 @@ reference (there is no Pallas backward kernel to port).
 Also the counterparts of JAX's ``heads_pack`` / ``heads_unpack``: the
 ``[B, S, H*d] <-> [B, H, S, d]`` relayouts, two CUDA copy kernels (any
 dtype, any shape) bound in one ``torch.autograd.Function`` pair, each the
-other's backward.  No model calls them, as in JAX (the q/k head split is
-fused into ``norm_rope_heads``; V's is a strided copy).
+other's backward.  Wan's q/k head split is fused into
+``norm_rope_heads`` and its V's is a strided copy, as in JAX; CogVideoX's V
+takes ``heads_pack``.
 """
 
 from __future__ import annotations

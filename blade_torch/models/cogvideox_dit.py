@@ -13,7 +13,9 @@ their weights stored in it (``layers.Linear``); LayerNorms, modulation,
 gates, the time embedding and ``proj_out`` in f32 with f32 parameters; the
 residual streams in ``dtype``.  The q/k
 ``deinterleave_perm`` is folded into ``to_q``/``to_k`` and ``norm_q``/
-``norm_k`` once at load time, so RoPE runs in the rotate-half form.
+``norm_k`` once at load time, so RoPE runs in the rotate-half form.  The
+q/k LayerNorm, video RoPE and head split run as one kernel
+(``kernels/qk_norm_rope.py``), v's head split as ``heads_pack``.
 
 The dense model (``token_perm=None``) attends over ``[text, video]``; with
 ``token_perm`` (ASA) the video tokens are gilbert-permuted once after
@@ -36,12 +38,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from blade_torch.attention.integration import stack_masks
+from blade_torch.kernels.norm_rope import heads_pack
+from blade_torch.kernels.qk_norm_rope import qk_norm_rope
 from blade_torch.models.layers import (
     FeedForward,
     Linear,
     PermutedLayerNorm,
     PermutedLinear,
-    apply_rope_half,
     checkpoint_block,
     deinterleave_perm,
     dense_attention_fn,
@@ -122,25 +125,16 @@ class CogJointAttention(nn.Module):
     def forward(self, hidden, enc, cos, sin, attention_fn, attn_kwargs, text_last):
         c = self.c
         n_vid, n_txt = hidden.shape[1], enc.shape[1]
-
-        def rope_segment(t):
-            t_vid = apply_rope_half(t[:, :, vid], cos, sin)
-            if text_last:
-                return torch.cat([t_vid, t[:, :, n_vid:]], dim=2)
-            return torch.cat([t[:, :, :n_txt], t_vid], dim=2)
-
+        tracing.count("dit.qk_norm_rope.recomputed_calls" if tracing.recomputing()
+                      else "dit.qk_norm_rope.calls")
         with tracing.span("dit.qkv"):
             x = torch.cat([hidden, enc] if text_last else [enc, hidden], dim=1)
             b, l, _ = x.shape
-            vid = slice(0, n_vid) if text_last else slice(n_txt, l)
-
-            def heads(t):
-                return t.reshape(b, l, c.num_heads, c.head_dim).transpose(1, 2)
-
-            v = heads(self.to_v(x))
-            q = rope_segment(self.norm_q(heads(self.to_q(x))).to(v.dtype))
-            k = rope_segment(self.norm_k(heads(self.to_k(x))).to(v.dtype))
-            v = v.contiguous()
+            nq, nk = self.norm_q, self.norm_k
+            q, k = qk_norm_rope(self.to_q(x), self.to_k(x), nq.weight, nq.bias, nk.weight,
+                                nk.bias, cos, sin, c.num_heads, 0 if text_last else n_txt,
+                                n_vid, eps=nq.eps)
+            v = heads_pack(self.to_v(x), c.num_heads)
         with tracing.span("dit.self_attn"):
             out = attention_fn(q, k, v, **attn_kwargs)
             aux = None

@@ -41,6 +41,9 @@ Spans, by layer (``blade.`` omitted):
 Counters: ``asa.calls``, ``asa.blocks_selected``, ``asa.blocks_total``
 (level-1 full-resolution key blocks of each mask a forward selects and could
 select), ``asa.recomputed_calls`` (ASA calls of blocks recomputed in a
+backward, counted there alone), ``dit.qk_norm_rope.calls`` (CogVideoX's
+q/k LayerNorm, RoPE and head split, one a joint attention) and
+``dit.qk_norm_rope.recomputed_calls`` (those of blocks recomputed in a
 backward, counted there alone), ``host_syncs`` and, from :func:`timed`
 spans, ``sample.seconds`` and ``decode.seconds``.
 """

@@ -54,15 +54,20 @@ no result):
    and the pyramid pack also at Wan 480p shapes (d=128, L=32760); the
    multi-level kernel timed in turns with one masked SDPA over the
    concatenated level keys ``[K; K2; K4; K8]`` (a 0 / log L / -inf token
-   mask: every level in one softmax);
+   mask: every level in one softmax); CogVideoX's q/k lane (per-head
+   LayerNorm, video RoPE and head split for q and k in one launch) and its
+   input gradient at [1, 17776, 3072], each in turns with its plain version,
+   and ``dit.qkv`` outside its GEMMs in turns with the composition it
+   replaced;
 10. the CogVideoX serving path: the full-width, full-depth
    ``cogvideox-5b-480p`` preset (42 blocks, dim 3072, 48 heads of 64) on
    random weights serves two requests through ``build_pipeline`` and
    ``T2VPipeline.generate`` (8 SDE-DPM++(2M) steps, CFG 1, the multilevel
    ASA lane, the f32 CogVideoX VAE decode, tiled and in fb=2 chunks, uint8
    frames ``(1, 49, 480, 720, 3)``), with exact launch counts (672 each of
-   the multi-level kernel, the pyramid pack and the dense kernel; no other
-   kernel), then one dense-attention forward for ``dense_step_ms``;
+   the multi-level kernel, the pyramid pack, the dense kernel, the q/k lane
+   and ``heads_pack``; no other kernel), then one dense-attention forward
+   for ``dense_step_ms``;
 11. a small-input reference check of the CogVideoX model: kernels (bf16,
    card) against plain versions (f32, CPU) with shared weights and the
    card's lists replayed;
@@ -97,7 +102,7 @@ no result):
    forced empty row, timed in turns with one masked SDPA on that mask,
    beside the 128-row sparse kernel on the same mask; the head relayouts
    ``heads_pack`` / ``heads_unpack``, bit exact, at the Wan 1.3B and 14B
-   q/k widths (no model calls them, as in the JAX package);
+   q/k widths (CogVideoX's v takes them);
 16. path (a), the reference-parity predictor: the ``wan-1.3b-480p`` preset
    with ``asa_predictor="max"`` and 32 sampled tokens a block serves two
    requests through ``build_pipeline`` and ``T2VPipeline.generate``, with
@@ -134,15 +139,17 @@ no result):
 22. one full-width LoRA gradient of CogVideoX-5B 480p on its serving lane
    (42 blocks, fused multilevel, q_rows 256, remat): finite, timed, peak
    memory, and exactly a layer one each of ``sparse_dq``, ``sparse_dkv``
-   and the delta kernel (shared by the four passes), three each of the
-   pooled backward kernels, two each of the forward's predictor, pyramid
-   pack and multi-level kernel, and no ``pack_kv``;
+   and the delta kernel (shared by the four passes), the q/k lane's dx
+   and ``heads_unpack``, three each of the pooled backward kernels, two
+   each of the forward's predictor, pyramid pack, multi-level kernel, q/k
+   lane and ``heads_pack``, and no ``pack_kv``;
 23. the CogVideoX training path: ``blade_torch.cli.train.main`` at full
    width (``--family cogvideox``, 42 blocks, random weights, ASA energy
    lane, remat, the DDPM family) for three TDM steps at the CLI defaults
    (k_step 2, CFG 3.5, lambda_reg 0.5); finite losses, moved adapters, a
    frozen base, exact launch counts a step (11 DiT forwards of 42 layers,
-   two backward passes: 11 x 42 ``pack_kv``, 4 x 42 delta).
+   two backward passes: 11 x 42 ``pack_kv``, q/k lane and ``heads_pack``,
+   4 x 42 delta, 2 x 42 of the q/k lane's dx and ``heads_unpack``).
 
 The second-to-last line is the card's ``name, power.limit``; before it, one
 JSON line with the per-kernel results (``launches`` sums the eight paths,
@@ -160,7 +167,7 @@ import time
 
 SERVE_KERNELS = ("dense_fwd", "sparse_fwd", "pack_kv", "norm_rope")
 BACKWARD_KERNELS = ("dense_dq", "dense_dkv", "sparse_dq", "sparse_dkv")
-COG_KERNELS = ("multilevel_fwd", "pack_kv_pyramid", "dense_fwd")
+COG_KERNELS = ("multilevel_fwd", "pack_kv_pyramid", "dense_fwd", "qk_norm_rope", "heads_pack")
 # Published H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate
 # and HBM3 bandwidth.  bound_ms = max(operations / rate, bytes / bandwidth).
 PEAK_BF16_FLOPS = 989e12
@@ -1083,6 +1090,97 @@ def check_dense_d64(torch, dev, checks):
     _attn_check(torch, record, "dense_fwd", f"cog dense leg q,k,v [1,{h},{length},{d}]",
                 lambda: flash_attention(q, k, v), lambda: dense_attention_with_lse(q, k, v),
                 3, 1, False, *_dense_work(q, k, v), library=lambda: sdpa(q, k, v))
+
+
+def check_cog_qk(torch, dev, checks):
+    """Phase 9, third part: CogVideoX's q/k lane (per-head LayerNorm, video
+    RoPE and head split for q and k in one launch) and its input gradient
+    against their plain versions at CogVideoX-5B 480p, [1, 17776, 3072] with
+    226 text rows last (ASA's order), each timed in turns with the plain
+    version (A B B A); then the whole of ``dit.qkv`` outside its GEMMs, the
+    lane plus v's head split (``heads_pack``), in turns with the composition
+    it replaced (the plain lane plus ``.transpose(1, 2).contiguous()``)."""
+    from blade_torch.kernels.norm_rope import heads_pack
+    from blade_torch.kernels.qk_norm_rope import (
+        _qk_dx_cuda, _qk_norm_rope_reference, qk_norm_rope)
+    from blade_torch.models.layers import apply_rope_half
+    from blade_torch.utils.rng import make_generator
+
+    gen = make_generator(2029, dev)
+    record = _recorder(checks)
+    h, d, length, n_txt = COG_HEADS, COG_HEAD_DIM, COG_TOKENS, 226
+    n_vid, dim = length - n_txt, COG_HEADS * COG_HEAD_DIM
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    q_proj, k_proj, v_proj = (randn(1, length, dim) for _ in range(3))
+    params = [1.0 + 0.2 * torch.randn(d, generator=gen, device=dev),
+              0.1 * torch.randn(d, generator=gen, device=dev),
+              1.0 + 0.2 * torch.randn(d, generator=gen, device=dev),
+              0.1 * torch.randn(d, generator=gen, device=dev)]
+    ang = torch.rand((n_vid, d // 2), generator=gen, device=dev) * 6.0
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    lane = (*params, cos, sin, h, 0, n_vid)
+
+    def kernel():
+        return qk_norm_rope(q_proj, k_proj, *lane)
+
+    def plain():
+        return _qk_norm_rope_reference(q_proj, k_proj, *lane, 1e-6)
+
+    # Tolerance: one bf16 ulp at each head row's largest value (the
+    # LayerNorm's sums in another order can turn one rounding), read on a
+    # call with no video rows; the rotation after it bit for bit.
+    def within_ulp(got, want):
+        rows = torch.maximum(got.float().abs(), want.float().abs()).reshape(-1, d).amax(-1)
+        ulp = torch.exp2(torch.floor(torch.log2(rows.clamp_min(2.0 ** -100))) - 7)
+        return bool(((got.float() - want.float()).abs().reshape(-1, d) <= ulp[:, None]).all())
+
+    got = kernel()
+    normed = qk_norm_rope(q_proj, k_proj, *params, cos[:0], sin[:0], h, 0, 0)
+    want = _qk_norm_rope_reference(q_proj, k_proj, *params, cos[:0], sin[:0], h, 0, 0, 1e-6)
+    ok = all(within_ulp(n, w) and torch.equal(g[:, :, n_vid:], n[:, :, n_vid:])
+             and torch.equal(g[:, :, :n_vid], apply_rope_half(n[:, :, :n_vid], cos, sin))
+             for g, n, w in zip(got, normed, want))
+    err = max(_max_err(g, w) for g, w in zip(got, plain()))
+    ms, plain_ms = _cuda_ms_turns(torch, [kernel, plain], 20)
+    record("qk_norm_rope", f"q,k [1,{length},{dim}] -> [1,{h},{length},{d}] x2, {n_txt} text last",
+           ok, err, ms, plain_ms, "LayerNorm 1 bf16 ulp of the head row's max, RoPE exact", True,
+           0.0, _nbytes(q_proj, k_proj, *got, cos, sin))
+    del got, want, normed
+
+    g_q, g_k = randn(1, h, length, d), randn(1, h, length, d)
+    leaves = [q_proj.detach().requires_grad_(True), k_proj.detach().requires_grad_(True)]
+    plain_out = _qk_norm_rope_reference(*leaves, *lane, 1e-6)
+
+    def dx_kernel():
+        return _qk_dx_cuda(g_q, g_k, q_proj, k_proj, params[0], params[2], cos, sin, h, 0,
+                           n_vid, 1e-6)
+
+    def dx_plain():
+        return torch.autograd.grad(plain_out, leaves, (g_q, g_k), retain_graph=True)
+
+    got, want = dx_kernel(), dx_plain()
+    ok = all(within_ulp(g, w) for g, w in zip(got, want))
+    err = max(_max_err(g, w) for g, w in zip(got, want))
+    ms, plain_ms = _cuda_ms_turns(torch, [dx_kernel, dx_plain], 20)
+    record("qk_norm_rope_dx", f"g [1,{h},{length},{d}], q,k [1,{length},{dim}] -> dq,dk x2",
+           ok, err, ms, plain_ms, "1 bf16 ulp of the head row's max", True, 0.0,
+           _nbytes(g_q, g_k, q_proj, k_proj, *got, cos, sin))
+    del got, want, plain_out, leaves
+
+    def glue_now():
+        return kernel(), heads_pack(v_proj, h)
+
+    def glue_before():
+        return plain(), v_proj.view(1, length, h, d).transpose(1, 2).contiguous()
+
+    now_ms, before_ms = _cuda_ms_turns(torch, [glue_now, glue_before], 20)
+    bound_ms, _ = _bound(0.0, 3 * _nbytes(q_proj) * 2)
+    print(f"cog dit.qkv outside its GEMMs (q/k lane + v head split), in turns: "
+          f"{now_ms:.4f} ms (qk_norm_rope + heads_pack) vs {before_ms:.4f} ms (the plain "
+          f"composition + a strided copy); bound {bound_ms:.4f} ms")
 
 
 def serve_cog(torch, dev):
@@ -2086,8 +2184,9 @@ def cog_multilevel_gradient(torch, dev):
     assert all(torch.isfinite(gr).all() for gr in out)
     n = preset.dit.num_layers
     want = {"dense_fwd": 2 * n, "pack_kv_pyramid": 2 * n, "multilevel_fwd": 2 * n,
-            "sparse_dq": n, "sparse_dkv": n, "attn_delta": n,
-            "pooled_level_dq": 3 * n, "pooled_level_dkv": 3 * n}
+            "qk_norm_rope": 2 * n, "heads_pack": 2 * n,
+            "sparse_dq": n, "sparse_dkv": n, "attn_delta": n, "qk_norm_rope_dx": n,
+            "heads_unpack": n, "pooled_level_dq": 3 * n, "pooled_level_dkv": 3 * n}
     print("cog multilevel gradient launches " + json.dumps(launches))
     for name, count in launches.items():
         assert count == want.get(name, 0), (name, count, want.get(name, 0))
@@ -2139,9 +2238,10 @@ def train_cog(torch, dev):
         assert not rec["fake_skipped"], rec  # no fake-loss guard for CogVideoX
     layers = 42
     fwd = _tdm_forwards(args.k_step, args.cfg, args.lambda_reg) * layers
-    want = {"dense_fwd": 2 * fwd, "sparse_fwd": fwd, "pack_kv": fwd,
-            "dense_dq": 2 * layers, "dense_dkv": 2 * layers, "sparse_dq": 2 * layers,
-            "sparse_dkv": 2 * layers, "attn_delta": 4 * layers}
+    want = {"dense_fwd": 2 * fwd, "sparse_fwd": fwd, "pack_kv": fwd, "qk_norm_rope": fwd,
+            "heads_pack": fwd, "dense_dq": 2 * layers, "dense_dkv": 2 * layers,
+            "sparse_dq": 2 * layers, "sparse_dkv": 2 * layers, "attn_delta": 4 * layers,
+            "qk_norm_rope_dx": 2 * layers, "heads_unpack": 2 * layers}
     for i, counts in enumerate(per_step):
         print(f"train_cog step {i} launches " + json.dumps(counts))
         for name, count in counts.items():
@@ -2206,6 +2306,7 @@ def main():
     torch.cuda.empty_cache()
     check_cog_multilevel(torch, dev, checks)
     check_dense_d64(torch, dev, checks)
+    check_cog_qk(torch, dev, checks)
     cog_results, cog_launches, cog_dense_ms = serve_cog(torch, dev)
     cog_ref_err = cog_reference_check(torch, dev)
     gc.collect()

@@ -7,7 +7,8 @@ CogVideoX-5B 480p main-path shapes, the "max" predictor, union-gathered
 sparse and head-relayout kernels; phase 12 at Wan2.1-14B 720p: the dense
 kernel as its predictor, the three pooled levels and the sparse kernel on
 the level-1 lists; the dense kernel as the CogVideoX pooled branch of phase
-18) and the backward checks (``check_backward``, phase 6: the dense and
+18; CogVideoX's q/k lane and its input gradient, ``check_cog_qk``) and the
+backward checks (``check_backward``, phase 6: the dense and
 sparse backward kernels and the delta kernel at Wan 480p, and the whole
 sparse backward as the port runs it; ``check_cog_energy``, phase 18: the
 same at CogVideoX d = 64, with its sparse forward and ``pack_kv``).
@@ -53,7 +54,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     dev, checks = torch.device("cuda"), {}
     names = sys.argv[1:] or ["check_kernels", "check_dense_d64", "check_wan14b_pooled",
-                             "check_cog_pooled_fwd", "check_cog_multilevel",
+                             "check_cog_pooled_fwd", "check_cog_multilevel", "check_cog_qk",
                              "check_last_kernels", "check_backward", "check_cog_energy"]
     for name in names:
         phase = getattr(smoke, name)

@@ -37,6 +37,7 @@ from blade_torch.kernels.norm_rope import (
 )
 from blade_torch.kernels.pack import pack_kv, pack_kv_pyramid
 from blade_torch.kernels.pooled_predictor import pooled_scores
+from blade_torch.kernels.qk_norm_rope import qk_norm_rope
 
 ATOL = 2e-5
 
@@ -198,6 +199,9 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
     with torch.no_grad():
         pooled_scores(q[..., :32, :].detach(), k[..., :32, :].detach(), 16)
         heads_unpack(heads_pack(q[0].detach(), 1))
+    ones, zeros, tables = torch.ones(64), torch.zeros(64), torch.zeros(40, 32)
+    outs = qk_norm_rope(q[0], k[0], ones, zeros, ones, zeros, tables, tables, 1, 12, 40)
+    sum(o.sum() for o in outs).backward()  # the q/k lane and its gradient
     old, tbsa.SPARSE_UNION = tbsa.SPARSE_UNION, True
     try:
         outs = block_sparse_attention(q, k, v, torch.ones(1, 1, 1, 1, dtype=torch.bool))
@@ -209,7 +213,7 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
                                    "pack_kv_pyramid", "multilevel_fwd", "pooled_level_fwd",
                                    "pooled_predictor", "sparse_union_fwd", "heads_pack",
                                    "heads_unpack", "pooled_level_dq", "pooled_level_dkv",
-                                   "attn_delta"}
+                                   "attn_delta", "qk_norm_rope", "qk_norm_rope_dx"}
     assert all(kern.launches == 0 for kern in _build.KERNELS.values())
 
 
@@ -224,6 +228,9 @@ def test_kernel_sources_and_build_flags():
             tpu_line = (root / path).read_text().splitlines()[int(line) - 1]
             if kern.name == "attn_delta":  # no TPU kernel: JAX's delta, in XLA
                 assert "delta = jnp.sum(g_out" in tpu_line, tpu_line
+                continue
+            if kern.name.startswith("qk_norm_rope"):  # no TPU kernel: CogVideoX's q/k, XLA
+                assert "q, k, v = heads(q), heads(k), heads(v)" in tpu_line, tpu_line
                 continue
             assert tpu_line.startswith("def _") and "kernel" in tpu_line, tpu_line
     with pytest.raises(ValueError):

@@ -7,7 +7,12 @@ machines need not have).  Inputs are bf16 on the card, as on the main path.
 Tolerances: attention outputs 2e-2 absolute (bf16 output rounding and the
 kernel's bf16 P @ V at |out| <~ 4), lse 5e-3 (f32 sums in another order),
 norm_rope 2e-2 (bf16 output rounding), both pack modes bit for bit (the
-pyramid pools in f32 in the same order as its plain version).  The backward
+pyramid pools in f32 in the same order as its plain version).  CogVideoX's
+q/k lane: its LayerNorm and its input gradient within one bf16 ulp at each
+head row's largest value (the LayerNorm's sums in another order can turn
+one rounding), the rotation after it bit for bit (rounded as the plain
+version's separate operations are), the norms' parameter gradients exact
+(the plain version's vjp).  The backward
 kernels (the 128-row ones and the pooled-level ones of the multilevel
 backward) are held to 2e-2 * max |ref| per gradient against the plain
 backward: p and ds are rounded to bf16 before each product (relative
@@ -591,6 +596,107 @@ def test_norm_rope_backward_is_vjp_of_plain(dev):
     rx, rs = torch.autograd.grad(_norm_rope_reference(xr, sr, cos, sin, 2, 1e-6), (xr, sr), g)
     torch.testing.assert_close(dx, rx, atol=0, rtol=0)
     torch.testing.assert_close(ds, rs, atol=0, rtol=0)
+
+
+def _qk_inputs(b, heads, n_txt, n_vid, seed, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    l = n_txt + n_vid
+    q_proj, k_proj = _rand(gen, b, l, heads * 64, dev=dev), _rand(gen, b, l, heads * 64, dev=dev)
+    params = [1.0 + 0.2 * torch.randn(64, generator=gen, device=dev),
+              0.1 * torch.randn(64, generator=gen, device=dev),
+              1.0 + 0.2 * torch.randn(64, generator=gen, device=dev),
+              0.1 * torch.randn(64, generator=gen, device=dev)]
+    ang = torch.rand((n_vid, 32), generator=gen, device=dev) * 6.0
+    return q_proj, k_proj, params, torch.cos(ang), torch.sin(ang)
+
+
+def _bf16_ulp(x):
+    return torch.exp2(torch.floor(torch.log2(x.clamp_min(2.0 ** -100))) - 7)
+
+
+# CogVideoX's q/k lane: B 1 and 2, 48 heads and 2, 226 text rows and 3,
+# 17,550 video rows and 37, text first and text last.
+@pytest.mark.parametrize("b,heads,n_txt,n_vid,text_last", [
+    (1, 48, 226, 17550, True),   # the 480p clip on ASA's lane
+    (1, 48, 226, 17550, False),  # the dense model's [text, video]
+    (2, 2, 3, 37, True),
+    (2, 2, 3, 37, False),
+    (2, 48, 3, 37, False),
+    (1, 2, 226, 17550, True),
+])
+def test_qk_norm_rope_kernel_matches_plain(dev, b, heads, n_txt, n_vid, text_last):
+    """The LayerNorm within one bf16 ulp at each head row's largest value
+    (mean and variance summed in another order can turn its rounding),
+    checked on a call with no video rows; then the rotation and the head
+    split bit for bit: text rows are that call's values, video rows the
+    plain RoPE of them."""
+    from blade_torch.kernels.qk_norm_rope import _qk_norm_rope_reference, qk_norm_rope
+    from blade_torch.models.layers import apply_rope_half
+
+    q_proj, k_proj, params, cos, sin = _qk_inputs(b, heads, n_txt, n_vid, b + heads + n_vid,
+                                                  dev)
+    vid_start = 0 if text_last else n_txt
+    vid = slice(vid_start, vid_start + n_vid)
+    before = _build.KERNELS["qk_norm_rope"].launches
+    got = qk_norm_rope(q_proj, k_proj, *params, cos, sin, heads, vid_start, n_vid)
+    normed = qk_norm_rope(q_proj, k_proj, *params, cos[:0], sin[:0], heads, 0, 0)
+    torch.cuda.synchronize()
+    assert _build.KERNELS["qk_norm_rope"].launches == before + 2
+    want = _qk_norm_rope_reference(q_proj, k_proj, *params, cos[:0], sin[:0], heads, 0, 0,
+                                   1e-6)
+    for g, n, w in zip(got, normed, want):
+        assert g.shape == (b, heads, n_txt + n_vid, 64) and g.is_contiguous()
+        top = torch.maximum(n.float().abs(), w.float().abs()).amax(-1, keepdim=True)
+        err = (n.float() - w.float()).abs()
+        assert (err <= _bf16_ulp(top)).all(), err.max()
+        roped = n.clone()
+        roped[:, :, vid] = apply_rope_half(n[:, :, vid], cos, sin)
+        assert torch.equal(g, roped)
+
+
+@pytest.mark.parametrize("b,heads,n_txt,n_vid,text_last", [
+    (1, 48, 226, 17550, True),
+    (2, 2, 3, 37, False),
+    (2, 48, 3, 37, True),
+])
+def test_qk_norm_rope_dx_kernel_matches_autograd_of_plain(dev, b, heads, n_txt, n_vid,
+                                                         text_last):
+    from blade_torch.kernels.qk_norm_rope import _qk_norm_rope_reference, qk_norm_rope
+
+    q_proj, k_proj, params, cos, sin = _qk_inputs(b, heads, n_txt, n_vid, 7 + n_vid, dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    cot = [_rand(gen, b, heads, n_txt + n_vid, 64, dev=dev) for _ in range(2)]
+    vid_start = 0 if text_last else n_txt
+    grads = []
+    for fn in (qk_norm_rope, lambda *a: _qk_norm_rope_reference(*a, 1e-6)):
+        leaves = [q_proj.detach().requires_grad_(True), k_proj.detach().requires_grad_(True)]
+        out = fn(*leaves, *params, cos, sin, heads, vid_start, n_vid)
+        grads.append(torch.autograd.grad(out, leaves, cot))
+    before = _build.KERNELS["qk_norm_rope_dx"].launches
+    for got, want in zip(*grads):
+        assert got.shape == want.shape and got.dtype == torch.bfloat16
+        rows = want.float().abs().reshape(b, n_txt + n_vid, heads, 64).amax(-1, keepdim=True)
+        err = (got.float() - want.float()).abs().reshape(b, n_txt + n_vid, heads, 64)
+        assert (err <= _bf16_ulp(rows)).all(), err.max()
+    leaves = [q_proj.detach().requires_grad_(True), k_proj.detach().requires_grad_(True)]
+    torch.autograd.grad(qk_norm_rope(*leaves, *params, cos, sin, heads, vid_start, n_vid),
+                        leaves, cot)
+    assert _build.KERNELS["qk_norm_rope_dx"].launches == before + 1
+
+
+def test_qk_norm_rope_parameter_gradients_are_vjp_of_plain(dev):
+    from blade_torch.kernels.qk_norm_rope import _qk_norm_rope_reference, qk_norm_rope
+
+    q_proj, k_proj, params, cos, sin = _qk_inputs(2, 2, 3, 37, 12, dev)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    cot = [_rand(gen, 2, 2, 40, 64, dev=dev) for _ in range(2)]
+    grads = []
+    for fn in (qk_norm_rope, lambda *a: _qk_norm_rope_reference(*a, 1e-6)):
+        leaves = [p.detach().requires_grad_(True) for p in params]
+        out = fn(q_proj, k_proj, *leaves, cos, sin, 2, 3, 37)
+        grads.append(torch.autograd.grad(out, leaves, cot))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
 @pytest.mark.parametrize("tpb,d,nq,nk", [
