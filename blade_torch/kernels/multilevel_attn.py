@@ -66,6 +66,7 @@ from blade_torch.kernels.ref_attention import (
     pooled_level_attention_reference,
     pooled_level_backward_reference,
 )
+from blade_torch.utils import tracing
 
 __all__ = ["multilevel_attention", "multilevel_from_records", "fused_supported",
            "levels_to_lists", "pooled_level_attention", "pooled_level_from_records",
@@ -412,8 +413,16 @@ def _multilevel_per_level(q, k, v, levels, scale):
                          f"got {tuple(levels.shape)}")
     levels = levels.to(q.device)
     out1, lse1 = block_sparse_attention(q, k, v, levels == 1, scale=scale)
-    pooled = _PooledLevels.apply(q, k, v, levels, scale)
-    return merge_attention([out1, *pooled[0::2]], [lse1, *pooled[1::2]])
+    # A block recomputed in a backward opens the spans and counts nothing.
+    counted = tracing.active() and not tracing.recomputing()
+    span = tracing.timed if counted else tracing.span
+    with span("asa.levels"):
+        pooled = _PooledLevels.apply(q, k, v, levels, scale)
+    with span("asa.level_merge"):
+        out = merge_attention([out1, *pooled[0::2]], [lse1, *pooled[1::2]])
+    if counted:
+        tracing.count("asa.per_level_calls")
+    return out
 
 
 def multilevel_attention(

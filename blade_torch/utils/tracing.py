@@ -28,9 +28,11 @@ Spans, by layer (``blade.`` omitted):
   ``dit.head``;
 - ASA: ``asa`` (the model's ``attention_fn``) holding ``asa.predict``
   (block scores), ``asa.select`` (the energy mask or the level lists),
-  ``asa.sparse`` (the block-sparse or multilevel kernel with its packing),
-  ``asa.pooled`` (the pooled K/V and its dense call), ``asa.merge`` (LSE
-  merge and cast);
+  ``asa.sparse`` (the block-sparse or multilevel kernel with its packing;
+  on the per-level multilevel lane it holds ``asa.levels``, the pyramid
+  pack and the three pooled levels, and ``asa.level_merge``, the four-way
+  LSE merge), ``asa.pooled`` (the pooled K/V and its dense call),
+  ``asa.merge`` (LSE merge and cast);
 - VAE: ``decode`` (``decode_latents``), ``decode.tile`` (a spatial tile),
   ``decode.chunk`` (a temporal chunk);
 - trainer: ``tdm.step`` (``train_step``), ``tdm.rollout``, ``tdm.merge``
@@ -44,8 +46,11 @@ select), ``asa.recomputed_calls`` (ASA calls of blocks recomputed in a
 backward, counted there alone), ``dit.qk_norm_rope.calls`` (CogVideoX's
 q/k LayerNorm, RoPE and head split, one a joint attention) and
 ``dit.qk_norm_rope.recomputed_calls`` (those of blocks recomputed in a
-backward, counted there alone), ``host_syncs`` and, from :func:`timed`
-spans, ``sample.seconds`` and ``decode.seconds``.
+backward, counted there alone), ``host_syncs``, ``asa.per_level_calls``
+(calls of the per-level multilevel lane, those of blocks recomputed in a
+backward left out) and, from :func:`timed` spans, ``sample.seconds``,
+``decode.seconds``, ``asa.levels.seconds`` and ``asa.level_merge.seconds``
+(the per-level lane's two spans, left out where recomputed).
 """
 
 from __future__ import annotations

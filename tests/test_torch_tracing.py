@@ -194,3 +194,72 @@ def test_inference_cli_profile_writes_a_trace_with_the_spans(tmp_path):
     names = {e["name"] for e in events if e.get("cat") == "user_annotation"}
     assert {"blade.sample", "blade.dit", "blade.asa", "blade.decode"} <= names
     assert not tracing.active()
+
+
+# -- the per-level multilevel lane's spans and counters --------------------------
+
+PER_LEVEL_COUNTERS = ("asa.per_level_calls", "asa.levels.seconds", "asa.level_merge.seconds")
+
+
+def _asa_call(lane, monkeypatch):
+    """One ASA call over 10 key blocks on ``lane``: "per_level" (the fused
+    lane refused, as past 256 key blocks), "fused" or "energy"."""
+    from blade_torch.attention import asa as A
+    from blade_torch.kernels import multilevel_attn as MA
+
+    if lane == "per_level":
+        for mod in (A, MA):
+            monkeypatch.setattr(mod, "fused_supported", lambda *a, **kw: False)
+    cfg = A.ASAConfig(latent_width=8, latent_height=8, latent_frames=20, pre_arranged=True,
+                      mask_mode="energy" if lane == "energy" else "multilevel")
+    g = make_generator(5)
+    q, k, v = (torch.randn((1, 2, 1280, 64), generator=g) for _ in range(3))
+    out, _, mask = A.asa_attention(q, k, v, cfg, generator=make_generator(6), return_mask=True)
+    assert torch.isfinite(out).all()
+    return mask
+
+
+def test_a_per_level_call_opens_its_two_spans_inside_sparse_and_counts_once(
+        monkeypatch, tmp_path):
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        mask = _asa_call("per_level", monkeypatch)
+    assert mask.dtype == torch.int32  # the per-level lane's int level mask
+    spans = _spans(prof, tmp_path)
+    names = [s[0] for s in spans]
+    assert names.count("asa.levels") == names.count("asa.level_merge") == 1
+    for s in spans:
+        if s[0] in ("asa.levels", "asa.level_merge"):
+            assert _parent(spans, s) == "asa.sparse", s
+    got = tracing.counters()
+    assert got["asa.per_level_calls"] == 1
+    for name in PER_LEVEL_COUNTERS[1:]:
+        assert len(tracing._counts[name]) == 1 and got[name] > 0.0
+
+
+@pytest.mark.parametrize("lane", ["fused", "energy"])
+def test_the_other_lanes_count_nothing_of_the_per_level_lane(monkeypatch, tmp_path, lane):
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        mask = _asa_call(lane, monkeypatch)
+    assert isinstance(mask, tuple) == (lane == "fused")  # the fused lane's lists
+    names = {s[0] for s in _spans(prof, tmp_path)}
+    assert "asa.sparse" in names and not {"asa.levels", "asa.level_merge"} & names
+    got = tracing.counters()
+    assert got["asa.calls"] == 1 and not set(PER_LEVEL_COUNTERS) & set(got)
+
+
+def test_a_recomputed_per_level_call_counts_nothing_of_its_lane(monkeypatch, tmp_path):
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with tracing.recompute(True):
+            _asa_call("per_level", monkeypatch)
+    names = [s[0] for s in _spans(prof, tmp_path)]
+    assert names.count("asa.levels") == names.count("asa.level_merge") == 1
+    assert tracing.counters() == {"asa.recomputed_calls": 1}
+
+
+def test_a_per_level_call_with_tracing_off_counts_nothing(monkeypatch):
+    def refuse(*a, **kw):
+        raise AssertionError("torch.profiler.record_function called with tracing off")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    _asa_call("per_level", monkeypatch)
+    assert tracing.counters() == {}
