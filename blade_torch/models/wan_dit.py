@@ -33,7 +33,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from blade_torch.attention.integration import stack_masks
-from blade_torch.kernels.norm_rope import norm_rope_heads
+from blade_torch.kernels.block_sparse_attn import flash_attention
+from blade_torch.kernels.norm_rope import heads_pack, heads_unpack, norm_rope_heads
 from blade_torch.models.layers import (
     FeedForward,
     Linear,
@@ -115,7 +116,12 @@ class WanSelfAttention(nn.Module):
 
 
 class WanCrossAttention(nn.Module):
-    """Text cross-attention (plain torch: the context is <= 512 tokens)."""
+    """Text cross-attention over the context's (<= 512) tokens on the dense
+    flash kernels (``flash_attention``: #1 forward, #5/#6 backward), heads
+    split and merged by ``heads_pack`` / ``heads_unpack``; CPU tensors take
+    their plain versions.  As in the JAX model, q . k and the softmax are in
+    f32 and the kernel rounds P to bf16 for P @ V (the plain version keeps P
+    in f32)."""
 
     def __init__(self, c: WanConfig, dtype, device=None):
         super().__init__()
@@ -130,18 +136,13 @@ class WanCrossAttention(nn.Module):
 
     def forward(self, x, context):
         c = self.c
-        b, l, _ = x.shape
-
-        def heads(t):
-            return t.reshape(b, t.shape[1], c.num_heads, c.head_dim).transpose(1, 2)
-
-        q = heads(self.norm_q(self.to_q(x)))
-        k = heads(self.norm_k(self.to_k(context)))
-        v = heads(self.to_v(context))
-        s = torch.matmul(q.float(), k.float().transpose(-1, -2)) / np.sqrt(c.head_dim)
-        p = torch.softmax(s, dim=-1).to(v.dtype)
-        out = torch.matmul(p, v).transpose(1, 2).reshape(b, l, c.dim)
-        return self.to_out[0](out.to(self.to_out[0].compute_dtype))
+        tracing.count("dit.cross_attn.recomputed_calls" if tracing.recomputing()
+                      else "dit.cross_attn.calls")
+        q = heads_pack(self.norm_q(self.to_q(x)), c.num_heads)
+        k = heads_pack(self.norm_k(self.to_k(context)), c.num_heads)
+        v = heads_pack(self.to_v(context), c.num_heads)
+        out, _ = flash_attention(q, k, v)  # scale 1 / sqrt(head_dim)
+        return self.to_out[0](heads_unpack(out))
 
 
 class WanBlock(nn.Module):

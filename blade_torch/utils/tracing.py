@@ -46,11 +46,14 @@ select), ``asa.recomputed_calls`` (ASA calls of blocks recomputed in a
 backward, counted there alone), ``dit.qk_norm_rope.calls`` (CogVideoX's
 q/k LayerNorm, RoPE and head split, one a joint attention) and
 ``dit.qk_norm_rope.recomputed_calls`` (those of blocks recomputed in a
-backward, counted there alone), ``host_syncs``, ``asa.per_level_calls``
-(calls of the per-level multilevel lane, those of blocks recomputed in a
-backward left out) and, from :func:`timed` spans, ``sample.seconds``,
-``decode.seconds``, ``asa.levels.seconds`` and ``asa.level_merge.seconds``
-(the per-level lane's two spans, left out where recomputed).
+backward, counted there alone), ``dit.cross_attn.calls`` (Wan's text
+cross-attention, one a block) and ``dit.cross_attn.recomputed_calls`` (those
+of blocks recomputed in a backward, counted there alone), ``host_syncs``,
+``asa.per_level_calls`` (calls of the per-level multilevel lane, those of
+blocks recomputed in a backward left out) and, from :func:`timed` spans,
+``sample.seconds``, ``decode.seconds``, ``asa.levels.seconds`` and
+``asa.level_merge.seconds`` (the per-level lane's two spans, left out where
+recomputed).
 """
 
 from __future__ import annotations

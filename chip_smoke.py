@@ -21,8 +21,10 @@ no result):
    random weights from a seeded generator serves two requests through
    ``build_pipeline`` and ``T2VPipeline.generate`` (8 UniPC steps, flow shift
    3, CFG 1, ASA energy lane, f32 streaming VAE decode, uint8 frames); the
-   kernels' launch counters are zeroed just before and read just after;
-   then one dense forward for comparison;
+   kernels' launch counters are zeroed just before and read just after
+   (a layer a step: two ``norm_rope``, one sparse and one pack; the text
+   cross-attention's three ``heads_pack``, one ``heads_unpack`` and one more
+   dense forward); then one dense forward for comparison;
 5. a small-input reference check: the same model code with kernels (bf16,
    on the card) against its plain versions (f32, on the CPU) on shared
    weights and replayed masks;
@@ -43,10 +45,13 @@ no result):
    (``wan-1.3b-480p``, 30 layers, random weights, ASA, remat), three TDM
    steps with k_step 2 and CFG 5; finite losses, moved adapters, a frozen
    base, a checkpoint at step 2, and exact launch counts a step: 2 x 30 of
-   each backward kernel (the fake and the generator backward passes), 4 x
-   30 of the delta kernel (the sparse and the pooled branch of each), and
-   10 x 30 of ``pack_kv`` (the forwards only: the sparse backward reads K/V
-   in place);
+   each sparse backward kernel and 4 x 30 of each dense one (the fake and
+   the generator backward passes; the dense pair for the pooled branch and
+   the text cross-attention), 6 x 30 of the delta kernel (the sparse and the
+   pooled branch and the cross-attention of each), 10 x 30 of ``pack_kv``
+   (the forwards only: the sparse backward reads K/V in place), and the
+   cross-attention's relayouts (3 ``heads_pack`` and 1 ``heads_unpack`` a
+   forward, 1 and 3 a backward);
 9. the kernels of the CogVideoX path against their plain versions at
    CogVideoX-5B 480p shapes (B=1, H=48, d=64, L=17776, q_rows 256, lists
    from the real predictor): the multi-level kernel, the pyramid pack, the
@@ -86,8 +91,9 @@ no result):
    weights, bf16 projections, serves one request after a warm-up forward
    (8 UniPC steps, flow shift 5, CFG 1, f32 streaming VAE decode, uint8
    frames ``(1, 81, 720, 1280, 3)``), with exact launch counts (320 each of
-   the dense, sparse, pack and pyramid-pack kernels, 640 norm_rope, 960
-   pooled-level; no other kernel) and the peak memory of the denoise and
+   the sparse, pack and pyramid-pack kernels and ``heads_unpack``, 640 dense
+   (the predictor and the text cross-attention) and norm_rope, 960
+   pooled-level and ``heads_pack``; no other kernel) and the peak memory of the denoise and
    of the decode apart, then one dense-attention forward of the same module;
 14. a small-input reference check of the per-level lane: a 2-layer Wan with
    one head of 128 over 273 key blocks, kernels (bf16, card) against plain
@@ -106,16 +112,17 @@ no result):
 16. path (a), the reference-parity predictor: the ``wan-1.3b-480p`` preset
    with ``asa_predictor="max"`` and 32 sampled tokens a block serves two
    requests through ``build_pipeline`` and ``T2VPipeline.generate``, with
-   exact launch counts a request (240 each of the predictor, dense, sparse
-   and pack kernels, 480 norm_rope; no other kernel) and every mask's
+   exact launch counts a request (240 each of the predictor, sparse and
+   pack kernels and ``heads_unpack``, 480 dense and norm_rope, 720
+   ``heads_pack``; no other kernel) and every mask's
    density; then a small-input reference check with ``predictor="max"``,
    kernels (bf16, card) against plain versions (f32, CPU), the card's
    sampled offsets replayed;
 17. path (b), the union-gathered sparse forward: the stock preset with
    ``block_sparse_attn.SPARSE_UNION`` set serves one request after a warm-up
-   forward, with exact launch counts (240 union kernel, 480 dense, 480
-   norm_rope, no 128-row sparse kernel and no pack: the union kernel reads
-   K/V in place);
+   forward, with exact launch counts (240 union kernel and
+   ``heads_unpack``, 720 dense and ``heads_pack``, 480 norm_rope, no 128-row
+   sparse kernel and no pack: the union kernel reads K/V in place);
 18. the d = 64 forms of the energy lane's kernels at CogVideoX-5B 480p
    training shapes (H=48, L=17776 with the 226 text tokens, an energy mask
    from the real predictor): the dense forward on the pooled branch (1186
@@ -149,7 +156,14 @@ no result):
    (k_step 2, CFG 3.5, lambda_reg 0.5); finite losses, moved adapters, a
    frozen base, exact launch counts a step (11 DiT forwards of 42 layers,
    two backward passes: 11 x 42 ``pack_kv``, q/k lane and ``heads_pack``,
-   4 x 42 delta, 2 x 42 of the q/k lane's dx and ``heads_unpack``).
+   4 x 42 delta, 2 x 42 of the q/k lane's dx and ``heads_unpack``);
+24. Wan's text cross-attention over its 512 text keys: the dense kernel at
+   the Wan2.1-1.3B 480p and 14B 720p query counts (the 14B's plain version
+   on 4 heads) and the dense backward pair at 1.3B, each against its plain
+   version and in turns with its library call; then ``WanCrossAttention``
+   whole (projections, q/k RMS norms, relayouts, attention) at both widths,
+   forward and (1.3B) forward with backward, against and in turns with the
+   library expression the kernels replaced (f32 scores, softmax, bf16 P @ V).
 
 The second-to-last line is the card's ``name, power.limit``; before it, one
 JSON line with the per-kernel results (``launches`` sums the eight paths,
@@ -591,10 +605,12 @@ def serve(torch, dev):
     results, launches, lat = _requests(torch, pipe, text, args.seed, args.steps,
                                        (1, 81, 480, 832, 3))
     L, steps = pipe.preset.dit.num_layers, args.steps
-    per_clip = {"norm_rope": 2 * L * steps, "sparse_fwd": L * steps, "pack_kv": L * steps}
+    # the text cross-attention packs q, k and v and unpacks its output a layer
+    per_clip = {"norm_rope": 2 * L * steps, "sparse_fwd": L * steps, "pack_kv": L * steps,
+                "heads_pack": 3 * L * steps, "heads_unpack": L * steps}
     for name, n in per_clip.items():
         assert launches[name] == 2 * n, (name, launches[name], 2 * n)
-    assert launches["dense_fwd"] >= 2 * 2 * L * steps, launches
+    assert launches["dense_fwd"] >= 2 * 3 * L * steps, launches
     # serving runs no backward kernel and none of the multilevel lane's
     assert all(launches[n] > 0 for n in SERVE_KERNELS), launches
     assert all(launches[n] == 0 for n in BACKWARD_KERNELS + ("attn_delta",)), launches
@@ -973,12 +989,20 @@ def train(torch, dev):
     fwd = _tdm_forwards(args.k_step, args.cfg, args.lambda_reg) * layers
     for i, counts in enumerate(per_step):
         print(f"train step {i} launches " + json.dumps(counts))
-        for name in BACKWARD_KERNELS:  # the fake and the generator backward
-            assert counts[name] == 2 * layers, (i, name, counts[name])
-        # delta once a backward pass (sparse and pooled branch) of each
-        # layer; only the forwards pack (the sparse backward reads K/V in place)
-        assert counts["attn_delta"] == 4 * layers, (i, counts["attn_delta"])
+        # the fake and the generator backward: the sparse pair once a layer,
+        # the dense pair twice (the pooled branch and the text cross-attention)
+        for name in BACKWARD_KERNELS:
+            want = (4 if name.startswith("dense") else 2) * layers
+            assert counts[name] == want, (i, name, counts[name], want)
+        # delta once a backward pass (sparse and pooled branch, cross-attention)
+        # of each layer; only the forwards pack (the sparse backward reads K/V
+        # in place)
+        assert counts["attn_delta"] == 6 * layers, (i, counts["attn_delta"])
         assert counts["pack_kv"] == fwd, (i, counts["pack_kv"], fwd)
+        # the cross-attention's relayouts: q, k, v packed and the output
+        # unpacked a forward; each one's gradient is the other in a backward
+        assert counts["heads_pack"] == 3 * fwd + 2 * layers, (i, counts["heads_pack"])
+        assert counts["heads_unpack"] == fwd + 6 * layers, (i, counts["heads_unpack"])
         assert all(counts[n] > 0 for n in SERVE_KERNELS), (i, counts)
     # the adapters moved (b starts at zero); the frozen base is bit-unchanged
     moved_g = sum(state.lora_g[k].abs().sum().item() for k in state.lora_g if k.endswith(".b"))
@@ -1431,8 +1455,9 @@ def serve_wan14b(torch, dev):
     results, launches, lat = _requests(torch, pipe, text, args.seed, args.steps,
                                        (1, 81, 720, 1280, 3), n=1)
     n = c.num_layers * args.steps
-    want = {"dense_fwd": n, "sparse_fwd": n, "pack_kv": n, "pack_kv_pyramid": n,
-            "norm_rope": 2 * n, "pooled_level_fwd": 3 * n}
+    want = {"dense_fwd": 2 * n, "sparse_fwd": n, "pack_kv": n, "pack_kv_pyramid": n,
+            "norm_rope": 2 * n, "pooled_level_fwd": 3 * n, "heads_pack": 3 * n,
+            "heads_unpack": n}
     for name, count in launches.items():
         assert count == want.get(name, 0), (name, count, want.get(name, 0))
 
@@ -1667,8 +1692,8 @@ def serve_maxpred(torch, dev, stock):
     finally:
         restore()
     n = pipe.preset.dit.num_layers * args.steps
-    want = {"pooled_predictor": n, "dense_fwd": n, "sparse_fwd": n, "pack_kv": n,
-            "norm_rope": 2 * n}
+    want = {"pooled_predictor": n, "dense_fwd": 2 * n, "sparse_fwd": n, "pack_kv": n,
+            "norm_rope": 2 * n, "heads_pack": 3 * n, "heads_unpack": n}
     for name, count in launches.items():  # per request
         assert count == 2 * want.get(name, 0), (name, count, 2 * want.get(name, 0))
     assert len(densities) == 2 * n
@@ -1759,7 +1784,8 @@ def serve_union(torch, dev, stock):
     results, launches, _, densities = _with_union(bsa, run)
     assert bsa.SPARSE_UNION is False
     n = pipe.preset.dit.num_layers * args.steps
-    want = {"sparse_union_fwd": n, "dense_fwd": 2 * n, "norm_rope": 2 * n}
+    want = {"sparse_union_fwd": n, "dense_fwd": 3 * n, "norm_rope": 2 * n, "heads_pack": 3 * n,
+            "heads_unpack": n}
     for name, count in launches.items():  # no sparse_fwd, no pack_kv: K/V in place
         assert count == want.get(name, 0), (name, count, want.get(name, 0))
     density = torch.stack(densities).mean().item()
@@ -2197,6 +2223,96 @@ def cog_multilevel_gradient(torch, dev):
     return res, launches
 
 
+def _cross_attn_library(attn, x, context):
+    """Wan's text cross-attention as library calls, the expression the dense
+    kernels replaced: the module's projections and q/k RMS norms, then f32
+    scores over strided head views, their softmax, P in bf16 @ V and a
+    strided relayout into the output projection."""
+    import torch
+
+    c = attn.c
+    b, lq, _ = x.shape
+
+    def heads(t):
+        return t.reshape(b, t.shape[1], c.num_heads, c.head_dim).transpose(1, 2)
+
+    q = heads(attn.norm_q(attn.to_q(x)))
+    k = heads(attn.norm_k(attn.to_k(context)))
+    v = heads(attn.to_v(context))
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(c.head_dim)
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return attn.to_out[0](torch.matmul(p, v).transpose(1, 2).reshape(b, lq, c.dim))
+
+
+def check_wan_cross_attn(torch, dev, checks):
+    """Phase 24: Wan's text cross-attention over its 512 text keys on the
+    dense kernels, then the module whole against its library expression."""
+    from blade_torch.kernels.block_sparse_attn import flash_attention
+    from blade_torch.kernels.ref_attention import dense_attention_with_lse
+    from blade_torch.models.layers import init_lecun_
+    from blade_torch.models.wan_dit import WAN_14B, WAN_1_3B, WanCrossAttention
+    from blade_torch.utils.rng import make_generator
+
+    gen = make_generator(2468, dev)
+    record = _recorder(checks)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lk, d = 512, 128
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    # -- the dense forward (#1) at the 1.3B and 14B query counts --------------
+    for h, length, heads in ((12, 32760, None), (40, 75600, 4)):
+        q, k, v = randn(1, h, length, d), randn(1, h, lk, d), randn(1, h, lk, d)
+        hs = slice(0, heads)
+        _attn_check(torch, record, "dense_fwd",
+                    f"cross-attn q [1,{h},{length},128] k,v [1,{h},512,128]",
+                    lambda: flash_attention(q, k, v),
+                    lambda: dense_attention_with_lse(q[:, hs], k[:, hs], v[:, hs]), 20, 1,
+                    False, *_dense_work(q, k, v), library=lambda: sdpa(q, k, v),
+                    heads=heads)
+        del q, k, v
+
+    # -- the dense backward pair (#5/#6) at 1.3B ------------------------------
+    q, k, v = randn(1, 12, 32760, d), randn(1, 12, lk, d), randn(1, 12, lk, d)
+    _bwd_check(torch, record, gen, "dense", "cross-attn q,dO [1,12,32760,128] k,v [1,12,512,128]",
+               q, k, v, None, 0.0, reps=10,
+               library=lambda g: _dense_bwd_library(torch, q, k, v, g, 1.0 / math.sqrt(d)))
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # -- the module whole, against its library expression, in turns ----------
+    res = {}
+    for name, cfg, length in (("wan", WAN_1_3B, 32760), ("wan14b", WAN_14B, 75600)):
+        attn = WanCrossAttention(cfg, torch.bfloat16)
+        with torch.no_grad():
+            init_lecun_(attn, torch.Generator().manual_seed(5))
+        attn = attn.to(dev)
+        x, context = randn(1, length, cfg.dim), randn(1, lk, cfg.dim)
+        with torch.no_grad():
+            got, want = attn(x, context), _cross_attn_library(attn, x, context)
+            err, ref_max = _max_err(got, want), want.float().abs().max().item()
+            fwd_ms, lib_ms = _cuda_ms_turns(
+                torch, [lambda: attn(x, context), lambda: _cross_attn_library(attn, x, context)],
+                10)
+        assert err <= OUT_REL * ref_max, (name, err, ref_max)
+        res[name] = dict(fwd_ms=fwd_ms, library_fwd_ms=lib_ms, max_abs_err=err,
+                         ref_max=ref_max)
+        if cfg is WAN_1_3B:
+            x.requires_grad_(True)
+            g_out = randn(1, length, cfg.dim)
+            wrt = [x, *attn.parameters()]
+            res[name]["fwd_bwd_ms"], res[name]["library_fwd_bwd_ms"] = _cuda_ms_turns(torch, [
+                lambda: torch.autograd.grad(attn(x, context), wrt, g_out),
+                lambda: torch.autograd.grad(_cross_attn_library(attn, x, context), wrt, g_out)],
+                5)
+        print(f"cross_attn module {name} [1,{length},{cfg.dim}] x 512 text keys: "
+              + json.dumps(res[name]))
+        del attn, x, context, got, want
+        torch.cuda.empty_cache()
+    return res
+
+
 def _tdm_forwards(k_step, cfg, lambda_reg):
     """DiT forwards a TDM step runs with remat: the k_step trajectory, the
     student's x0, the teacher's x0 when lambda_reg > 0, the fake and the
@@ -2343,6 +2459,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     trained_cog, train_cog_launches = train_cog(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cross_attn = check_wan_cross_attn(torch, dev, checks)
 
     warm, cog, w14 = results[1], cog_results[1], w14_results[0]
     print("summary " + json.dumps(dict(
@@ -2380,6 +2499,8 @@ def main():
         cog_multilevel_grad_peak_mem_gib=cog_grad["peak_mem_gib"],
         train_cog_s_per_step=trained_cog["s_per_step_warm"],
         train_cog_peak_mem_gib=trained_cog["peak_mem_gib"],
+        cross_attn_ms={name: r["fwd_ms"] for name, r in cross_attn.items()},
+        cross_attn_library_ms={name: r["library_fwd_ms"] for name, r in cross_attn.items()},
         wall_s=time.perf_counter() - t_start)))
     paths = {"serve_wan": serve_launches, "train_wan": train_launches,
              "serve_cog": cog_launches, "serve_wan14b": w14_launches,

@@ -11,7 +11,10 @@ the level-1 lists; the dense kernel as the CogVideoX pooled branch of phase
 backward checks (``check_backward``, phase 6: the dense and
 sparse backward kernels and the delta kernel at Wan 480p, and the whole
 sparse backward as the port runs it; ``check_cog_energy``, phase 18: the
-same at CogVideoX d = 64, with its sparse forward and ``pack_kv``).
+same at CogVideoX d = 64, with its sparse forward and ``pack_kv``) and
+``check_wan_cross_attn`` (phase 24: the dense forward and backward over
+Wan's 512 text keys, and ``WanCrossAttention`` whole in turns with the
+library expression the kernels replaced).
 
     python3 scripts/torch_kernel_times.py [PHASE ...]
 
@@ -55,7 +58,8 @@ def main():
     dev, checks = torch.device("cuda"), {}
     names = sys.argv[1:] or ["check_kernels", "check_dense_d64", "check_wan14b_pooled",
                              "check_cog_pooled_fwd", "check_cog_multilevel", "check_cog_qk",
-                             "check_last_kernels", "check_backward", "check_cog_energy"]
+                             "check_last_kernels", "check_backward", "check_cog_energy",
+                             "check_wan_cross_attn"]
     for name in names:
         phase = getattr(smoke, name)
         try:

@@ -17,7 +17,9 @@ kernels (the 128-row ones and the pooled-level ones of the multilevel
 backward) are held to 2e-2 * max |ref| per gradient against the plain
 backward: p and ds are rounded to bf16 before each product (relative
 2^-9 a term) and the gradients to bf16 on output; delta = rowsum(dO * O)
-to 1e-5 of each row's sum of |dO * O| (f32 sums in another order).
+to 1e-5 of each row's sum of |dO * O| (f32 sums in another order).  Wan's
+text cross-attention on those kernels is held to the same 2e-2 of the
+largest value, output and gradients, against the f32 expression it replaced.
 """
 
 import math
@@ -848,6 +850,64 @@ def test_heads_pack_gradients_are_each_others_kernel(dev):
     (heads_pack(x, 2).float() * w.float()).sum().backward()
     assert _build.KERNELS["heads_unpack"].launches == before + 1
     assert torch.equal(x.grad, w.transpose(1, 2).reshape(1, 64, 256))
+
+
+def _cross_attn_expression(attn, x, context):
+    """What ``WanCrossAttention`` computed before the flash kernels, in f32
+    from the same bf16 projections: the f32 scores, their softmax and
+    P @ V, then the module's output projection."""
+    c = attn.c
+    b, lq, _ = x.shape
+
+    def heads(t):
+        return t.float().reshape(b, t.shape[1], c.num_heads, c.head_dim).transpose(1, 2)
+
+    q = heads(attn.norm_q(attn.to_q(x)))
+    k = heads(attn.norm_k(attn.to_k(context)))
+    v = heads(attn.to_v(context))
+    p = torch.softmax(q @ k.transpose(-1, -2) / math.sqrt(c.head_dim), dim=-1)
+    return attn.to_out[0]((p @ v).transpose(1, 2).reshape(b, lq, c.dim))
+
+
+@pytest.mark.parametrize("lq,lk", [(1000, 512), (1000, 77), (256, 512)])
+def test_wan_cross_attention_matches_its_f32_expression(dev, lq, lk):
+    """Wan's text cross-attention at the 1.3B's width (12 heads of 128), on
+    #1 forward and #5/#6 backward: its output and the gradients of x, the
+    context and the four projections' weights against the f32 expression it
+    replaced, each to ``BWD_REL`` of the reference's largest value."""
+    from blade_torch.models.layers import init_lecun_
+    from blade_torch.models.wan_dit import WAN_1_3B, WanCrossAttention
+
+    attn = WanCrossAttention(WAN_1_3B, torch.bfloat16)
+    with torch.no_grad():
+        init_lecun_(attn, torch.Generator().manual_seed(lq + lk))
+        for norm in (attn.norm_q, attn.norm_k):
+            norm.weight.uniform_(0.5, 1.5, generator=torch.Generator().manual_seed(lk))
+    attn = attn.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(lq * 3 + lk)
+    x = _rand(gen, 1, lq, WAN_1_3B.dim, dev=dev).requires_grad_(True)
+    context = _rand(gen, 1, lk, WAN_1_3B.dim, dev=dev).requires_grad_(True)
+    g_out = _rand(gen, 1, lq, WAN_1_3B.dim, dev=dev)
+    wrt = (x, context, attn.to_q.weight, attn.to_k.weight, attn.to_v.weight,
+           attn.to_out[0].weight)
+    fwd = ("dense_fwd", "heads_pack", "heads_unpack")
+    bwd = ("dense_dq", "dense_dkv", "attn_delta", "heads_pack", "heads_unpack")
+    before = [_build.KERNELS[n].launches for n in fwd]
+    out = attn(x, context)
+    torch.cuda.synchronize()
+    # One flash forward; q, k and v packed, the output unpacked.
+    assert [_build.KERNELS[n].launches - b for n, b in zip(fwd, before)] == [1, 3, 1]
+    before = [_build.KERNELS[n].launches for n in bwd]
+    got = torch.autograd.grad(out, wrt, g_out)
+    torch.cuda.synchronize()
+    # The dense pair once, after delta; each relayout's gradient is the other.
+    assert [_build.KERNELS[n].launches - b for n, b in zip(bwd, before)] == [1, 1, 1, 1, 3]
+    ref = _cross_attn_expression(attn, x, context)
+    want = torch.autograd.grad(ref, wrt, g_out)
+    assert out.dtype == torch.bfloat16 and out.shape == (1, lq, WAN_1_3B.dim)
+    for g, r in zip((out, *got), (ref, *want)):
+        assert torch.isfinite(g.float()).all()
+        assert _err(g, r) <= BWD_REL * r.float().abs().max().item()
 
 
 def test_cuda_inputs_never_fall_back(dev):

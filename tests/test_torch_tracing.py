@@ -15,6 +15,9 @@
   counters.
 * ``--profile PATH`` of the inference CLI writes a Chrome trace holding the
   spans.
+* Wan's text cross-attention counts ``dit.cross_attn.calls`` once a layer a
+  forward (CogVideoX, which has none, counts nothing of it); remat's
+  recomputation counts ``dit.cross_attn.recomputed_calls`` alone.
 """
 
 import dataclasses
@@ -27,6 +30,7 @@ from torch.profiler import ProfilerActivity, profile
 from blade_torch import config as C
 from blade_torch.cli import inference as tcli
 from blade_torch.cli import train as T
+from blade_torch.models.wan_dit import WAN_TINY, WanModel
 from blade_torch.sampling.t2v import T2VPipeline
 from blade_torch.training import tdm
 from blade_torch.utils import tracing
@@ -263,3 +267,42 @@ def test_a_per_level_call_with_tracing_off_counts_nothing(monkeypatch):
     monkeypatch.setattr(torch.profiler, "record_function", refuse)
     _asa_call("per_level", monkeypatch)
     assert tracing.counters() == {}
+
+
+# -- Wan's text cross-attention counters --------------------------------------
+
+CROSS_ATTN = ("dit.cross_attn.calls", "dit.cross_attn.recomputed_calls")
+
+
+def _cross_attn_counters():
+    return {n: v for n, v in tracing.counters().items() if n in CROSS_ATTN}
+
+
+@pytest.mark.parametrize("family", sorted(LANES))
+def test_generate_counts_one_cross_attention_a_wan_layer_a_forward(family):
+    pipe = _pipe(family)
+    forwards = []
+    pipe.dit.register_forward_pre_hook(lambda m, a: forwards.append(None))
+    with profile(activities=[ProfilerActivity.CPU]):
+        pipe.generate(_text(pipe), generator=make_generator(2), num_steps=STEPS)
+    assert len(forwards) == STEPS
+    layers = pipe.preset.dit.num_layers
+    want = {"dit.cross_attn.calls": STEPS * layers} if family == "wan" else {}
+    assert _cross_attn_counters() == want
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_remat_counts_the_recomputed_cross_attentions_alone(remat):
+    model = WanModel(WAN_TINY, dtype=torch.float32, remat=remat)
+    model.random_init_(make_generator(7))
+    g = make_generator(8)
+    latents = torch.randn((1, WAN_TINY.in_channels, 2, 8, 8), generator=g)
+    text = torch.randn((1, 12, WAN_TINY.text_dim), generator=g)
+    with profile(activities=[ProfilerActivity.CPU]):
+        model(latents, torch.tensor([500.0]), text).square().mean().backward()
+    layers = WAN_TINY.num_layers
+    assert all(p.grad is not None for p in model.blocks[0].attn2.parameters())
+    want = {"dit.cross_attn.calls": layers}
+    if remat:
+        want["dit.cross_attn.recomputed_calls"] = layers
+    assert _cross_attn_counters() == want
