@@ -76,10 +76,9 @@ def build_pipeline(args, preset=None):
 
     if preset is None and args.preset:
         preset = C.PRESETS[args.preset]
-    elif preset is None and args.family == "wan":
-        preset = C.WAN_TINY_PRESET if args.tiny else C.WAN_480P
     elif preset is None:
-        preset = C.COGVIDEOX_TINY_PRESET if args.tiny else C.COGVIDEOX_480P
+        family = C.FAMILIES[args.family]
+        preset = family.tiny if args.tiny else family.full
     if not args.random_init:
         raise SystemExit("checkpoint loading is not ported yet: pass --random-init")
     device = torch.device(args.device or "cuda")

@@ -126,10 +126,8 @@ def _refuse_later_slices(args) -> None:
 def build_preset(args):
     from blade_torch import config as C
 
-    if args.family == "wan":
-        preset = C.WAN_TINY_PRESET if args.tiny else C.WAN_480P
-    else:
-        preset = C.COGVIDEOX_TINY_PRESET if args.tiny else C.COGVIDEOX_480P
+    family = C.FAMILIES[args.family]
+    preset = family.tiny if args.tiny else family.full
     if args.video:
         f, h, w = args.video
         preset = dataclasses.replace(preset, video=C.VideoSpec(f, h, w, preset.video.fps))
@@ -141,8 +139,6 @@ def build_model(args, preset, device):
     preset, otherwise bf16 (three merged roles of the base in f32 would not
     fit one card; LoRA factors and optimizer states stay f32)."""
     from blade_torch.config import derive_asa_config
-    from blade_torch.models.cogvideox_dit import CogVideoXModel
-    from blade_torch.models.wan_dit import WanModel
     from blade_torch.utils.rng import make_generator
 
     kwargs = {}
@@ -153,9 +149,9 @@ def build_model(args, preset, device):
         # (CogVideoX serves on the multilevel lane)
         kwargs = asa_model_kwargs(derive_asa_config(preset, "energy"))
     remat = args.remat if args.remat is not None else not args.tiny
-    cls = WanModel if preset.name == "wan" else CogVideoXModel
-    model = cls(preset.dit, dtype=torch.float32 if args.tiny else torch.bfloat16,
-                remat=remat, device=device, **kwargs)
+    model = preset.family.dit_class(
+        preset.dit, dtype=torch.float32 if args.tiny else torch.bfloat16, remat=remat,
+        device=device, **kwargs)
     model.random_init_(make_generator(args.seed, device))
     if not args.tiny:
         model.to(torch.bfloat16)
@@ -164,43 +160,28 @@ def build_model(args, preset, device):
 
 def latent_shape(preset, batch: int):
     """Wan ``[B, C, T, H, W]``; CogVideoX ``[B, T, C, H, W]``."""
-    t, h, w = preset.latent_grid()
-    if preset.name == "wan":
-        pt, ph, pw = preset.dit.patch_size
-        return (batch, preset.dit.in_channels, t * pt, h * ph, w * pw)
-    p = preset.dit.patch_size
-    return (batch, t, preset.dit.in_channels, h * p, w * p)
+    return preset.family.latent_shape(preset, batch)
 
 
 def diffusion_family(preset, device):
     """Wan: flow matching over the shifted training sigmas; CogVideoX: DDPM
     v-prediction over the preset's schedule."""
-    from blade_torch.training import tdm
-
-    if preset.name == "wan":
-        from blade_torch.schedulers import unipc_flow as F
-
-        return tdm.flow_family(F.flow_training_sigmas(1000, preset.flow_shift or 3.0),
-                               device=device)
-    from blade_torch.schedulers import ddpm as D
-
-    return tdm.ddpm_family(D.make_ddpm_schedule(
-        snr_shift_scale=preset.snr_shift_scale,
-        rescale_betas_zero_snr=preset.rescale_betas_zero_snr), device=device)
+    return preset.family.diffusion(preset, device)
 
 
 def tdm_config(args):
+    from blade_torch.config import FAMILIES
     from blade_torch.training import tdm
 
-    wan = args.family == "wan"
+    family = FAMILIES[args.family]
     return tdm.TDMConfig(
         k_step=args.k_step, eta=args.eta, cfg=args.cfg, lambda_reg=args.lambda_reg,
         lr_generator=args.learning_rate_g, lr_fake=args.learning_rate_fake,
         adam_b1=args.adam_beta1, adam_b2=args.adam_beta2,
         max_grad_norm=args.max_grad_norm, lora_rank=args.rank,
         lora_alpha=args.lora_alpha,
-        # Wan: the fake-loss skip guard; CogVideoX: the weighting factor
-        use_weighting_factor=not wan, fake_loss_skip_threshold=2.0 if wan else None,
+        use_weighting_factor=family.use_weighting_factor,
+        fake_loss_skip_threshold=family.fake_loss_skip_threshold,
         optimizer=args.optimizer, grad_accum=args.grad_accum,
         lr_scheduler=args.lr_scheduler, lr_warmup_steps=args.lr_warmup_steps,
         lr_num_cycles=args.lr_num_cycles, lr_power=args.lr_power,

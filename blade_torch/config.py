@@ -6,26 +6,49 @@ encoder's output width (``text_dim``) instead of a T5 config.  The tiny
 presets decode with their family's tiny VAE (``WAN21_VAE_TINY``,
 ``COGVIDEOX_VAE_TINY``); the JAX tiny presets use the generic tiny VAE,
 which is not part of the port.
+
+What differs between the two model families -- their modules, serving lane,
+latent layout, VAE decode, sampler, training diffusion and TDM guards -- is
+decided in one place: the :class:`Family` record ``FAMILIES[preset.name]``
+(``preset.family``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 from blade_torch.attention.asa import ASAConfig
-from blade_torch.models.cogvideox_dit import COGVIDEOX_5B, COGVIDEOX_TINY, CogVideoXConfig
+from blade_torch.models.cogvideox_dit import (
+    COGVIDEOX_5B,
+    COGVIDEOX_TINY,
+    CogVideoXConfig,
+    CogVideoXModel,
+)
+from blade_torch.models.vae import tiled_decode, uniform_tiling
 from blade_torch.models.vae_cogvideox import (
     COGVIDEOX_VAE_FULL,
     COGVIDEOX_VAE_TINY,
+    CogVideoXVAE,
     CogVideoXVAEConfig,
+    chunked_decode,
 )
-from blade_torch.models.vae_wan import WAN21_VAE, WAN21_VAE_TINY, WanVAEConfig
-from blade_torch.models.wan_dit import WAN_1_3B, WAN_14B, WAN_TINY, WanConfig
+from blade_torch.models.vae_wan import (
+    WAN21_VAE,
+    WAN21_VAE_TINY,
+    WanVAE,
+    WanVAEConfig,
+    streaming_decode,
+)
+from blade_torch.models.wan_dit import WAN_1_3B, WAN_14B, WAN_TINY, WanConfig, WanModel
+from blade_torch.sampling.pipeline import SDEDPM, FlowUniPC
+from blade_torch.schedulers.ddpm import make_ddpm_schedule
+from blade_torch.schedulers.unipc_flow import flow_training_sigmas
+from blade_torch.training import tdm
 
-__all__ = ["VideoSpec", "FamilyPreset", "WAN_480P", "WAN_14B_720P", "WAN_TINY_PRESET",
-           "COGVIDEOX_480P",
-           "COGVIDEOX_TINY_PRESET", "PRESETS", "derive_asa_config", "default_mask_mode"]
+__all__ = ["VideoSpec", "FamilyPreset", "Family", "FAMILIES", "WAN_480P", "WAN_14B_720P",
+           "WAN_TINY_PRESET", "COGVIDEOX_480P", "COGVIDEOX_TINY_PRESET", "PRESETS",
+           "derive_asa_config"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,22 +83,17 @@ class FamilyPreset:
     asa_multilevel_q_rows: int = 128
     asa_mask_ratios: Optional[Dict[int, Tuple[float, float]]] = None
 
+    @property
+    def family(self) -> "Family":
+        """This preset's family record, ``FAMILIES[self.name]``."""
+        return FAMILIES[self.name]
+
     def latent_grid(self) -> Tuple[int, int, int]:
         """(T, H, W) latent token grid: VAE compression x DiT patching."""
         v, vae = self.video, self.vae
+        pt, ph, pw = self.family.patch(self.dit)
         t = (v.num_frames - 1) // vae.temporal_factor + 1
-        if self.name == "wan":
-            pt, ph, pw = self.dit.patch_size
-            return t // pt, v.height // vae.spatial_factor // ph, \
-                v.width // vae.spatial_factor // pw
-        p = self.dit.patch_size
-        return t, v.height // vae.spatial_factor // p, v.width // vae.spatial_factor // p
-
-
-def default_mask_mode(preset: FamilyPreset) -> str:
-    """The reference's serving lane: multilevel for CogVideoX, the binary
-    energy lane for Wan."""
-    return "multilevel" if preset.name == "cogvideox" else "energy"
+        return t // pt, v.height // vae.spatial_factor // ph, v.width // vae.spatial_factor // pw
 
 
 def derive_asa_config(preset: FamilyPreset, mask_mode: Optional[str] = None) -> ASAConfig:
@@ -89,7 +107,7 @@ def derive_asa_config(preset: FamilyPreset, mask_mode: Optional[str] = None) -> 
         max_retain_ratio=preset.max_retain_ratio,
         predictor=preset.asa_predictor,
         sample_tokens_per_block=preset.asa_sample_tokens,
-        mask_mode=mask_mode or default_mask_mode(preset),
+        mask_mode=mask_mode or preset.family.mask_mode,
         mask_ratios=preset.asa_mask_ratios,
         multilevel_q_rows=preset.asa_multilevel_q_rows,
     )
@@ -137,4 +155,87 @@ PRESETS = {
     "wan-tiny": WAN_TINY_PRESET,
     "cogvideox-5b-480p": COGVIDEOX_480P,
     "cogvideox-tiny": COGVIDEOX_TINY_PRESET,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Family:
+    """What differs between the model families: one record a family, in
+    :data:`FAMILIES`.  Adding a family means adding a record."""
+
+    dit_class: type  # WanModel | CogVideoXModel
+    vae_class: type  # WanVAE | CogVideoXVAE
+    mask_mode: str  # the reference's serving lane
+    patch: Callable  # DiT config -> (pt, ph, pw), its patch in latent pixels
+    # of the model-layout latents: Wan [B, C, T, H, W], CogVideoX [B, T, C, H, W]
+    channel_axis: int
+    decode: Callable  # (vae, z [B, T, H, W, C]) -> frames, f32
+    solver: Callable  # (preset, num_steps) -> the sampler's solver
+    diffusion: Callable  # (preset, device) -> the TDM trainer's diffusion family
+    use_weighting_factor: bool  # of the TDM generator loss
+    fake_loss_skip_threshold: Optional[float]  # TDM's fake-loss guard
+    full: FamilyPreset  # the presets ``--family`` names, without and with ``--tiny``
+    tiny: FamilyPreset
+
+    def latent_shape(self, preset: FamilyPreset, batch: int) -> Tuple[int, ...]:
+        """Model-layout latents of ``batch`` clips."""
+        pt, ph, pw = self.patch(preset.dit)
+        t, h, w = preset.latent_grid()
+        shape = [t * pt, h * ph, w * pw]
+        shape.insert(self.channel_axis - 1, preset.dit.in_channels)
+        return (batch, *shape)
+
+    def to_bthwc(self, latents):
+        """Model-layout latents -> the VAE's ``[B, T, H, W, C]``."""
+        axes = [a for a in range(latents.dim()) if a != self.channel_axis]
+        return latents.permute(*axes, self.channel_axis)
+
+
+def _wan_decode(vae, z):
+    """Streaming decode with the conv state carried, past 2 latent frames."""
+    return streaming_decode(vae, z) if z.shape[1] > 2 else vae.decode(z)
+
+
+def _cogvideox_decode(vae, z):
+    """Past 3 latent frames, ``frame_batch=2`` chunks, in uniform spatial
+    tiles of at most 20 latent pixels once the frame holds 1024 latent pixels
+    or more (JAX's decode path)."""
+    if z.shape[1] <= 3:
+        return vae.decode(z)
+
+    def chunked(zz):
+        return chunked_decode(vae, zz, frame_batch=2)
+
+    if z.shape[2] * z.shape[3] < 1024:
+        return chunked(z)
+    (th, oh), (tw, ow) = uniform_tiling(z.shape[2], 20), uniform_tiling(z.shape[3], 20)
+    return tiled_decode(chunked, z, tile_latent=(th, tw), overlap=(oh, ow),
+                        spatial_factor=vae.cfg.spatial_factor)
+
+
+def _ddpm_schedule(preset: FamilyPreset):
+    return make_ddpm_schedule(snr_shift_scale=preset.snr_shift_scale,
+                              rescale_betas_zero_snr=preset.rescale_betas_zero_snr)
+
+
+FAMILIES = {
+    # 8-step flow UniPC; trains on flow matching with the fake-loss skip guard.
+    "wan": Family(
+        dit_class=WanModel, vae_class=WanVAE, mask_mode="energy",
+        patch=lambda dit: dit.patch_size, channel_axis=1, decode=_wan_decode,
+        solver=lambda p, n: FlowUniPC(n, flow_shift=p.flow_shift),
+        diffusion=lambda p, device: tdm.flow_family(
+            flow_training_sigmas(1000, p.flow_shift), device=device),
+        use_weighting_factor=False, fake_loss_skip_threshold=2.0,
+        full=WAN_480P, tiny=WAN_TINY_PRESET),
+    # 8-step SDE-DPM++(2M); trains on DDPM v-prediction with the generator
+    # loss's weighting factor.
+    "cogvideox": Family(
+        dit_class=CogVideoXModel, vae_class=CogVideoXVAE, mask_mode="multilevel",
+        patch=lambda dit: (1, dit.patch_size, dit.patch_size), channel_axis=2,
+        decode=_cogvideox_decode,
+        solver=lambda p, n: SDEDPM(n, _ddpm_schedule(p)),
+        diffusion=lambda p, device: tdm.ddpm_family(_ddpm_schedule(p), device=device),
+        use_weighting_factor=True, fake_loss_skip_threshold=None,
+        full=COGVIDEOX_480P, tiny=COGVIDEOX_TINY_PRESET),
 }

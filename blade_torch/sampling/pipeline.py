@@ -1,10 +1,11 @@
-"""Denoising loops: Wan's 8-step flow UniPC and CogVideoX's 8-step
-SDE-DPM++(2M), each with optional ASA mask reuse.
+"""Denoising: one loop over Wan's 8-step flow UniPC or CogVideoX's 8-step
+SDE-DPM++(2M), with optional ASA mask reuse.
 
 Counterpart of ``blade/sampling/pipeline.py`` (CFG 1: the distilled
-samplers' setting).  PyTorch runs eagerly, so each loop is a host loop over
-steps; the steppers expose the same per-step decomposition as the JAX
-package, and ``sample_wan`` / ``sample_cogvideox`` are their folds.
+samplers' setting).  PyTorch runs eagerly, so :func:`sample` is a host loop
+over :func:`step`, which runs the model and then its solver's update.  A
+solver (:class:`FlowUniPC`, :class:`SDEDPM`) holds its schedule ``sched``
+with ``init(noise)`` and ``update(state, v, i, generator, xi=None)``.
 
 ``model_fn(latents, timestep, text_embeds, generator, masks=None,
 collect_mask=False) -> prediction`` (or ``(prediction, masks)`` when
@@ -27,175 +28,76 @@ from blade_torch.schedulers.cogvideox_dpm import dpm_init, dpm_step, make_dpm_sc
 from blade_torch.utils import tracing
 from blade_torch.utils.rng import fold_generator
 
-__all__ = ["sample_wan", "wan_stepper", "wan_stepper_reuse", "sample_cogvideox",
-           "cog_stepper", "cog_stepper_reuse"]
+__all__ = ["FlowUniPC", "SDEDPM", "step", "sample"]
 
 ModelFn = Callable[..., torch.Tensor]
 
 
-def _update(step_fn, *args):
-    """A scheduler's update (``unipc_step`` / ``dpm_step``) in its span."""
-    with tracing.span("sample.update"):
-        return step_fn(*args)
+class FlowUniPC:
+    """Wan's flow-matching UniPC; its update draws no noise."""
 
+    def __init__(self, num_steps: int = 8, flow_shift: float = 3.0):
+        self.sched = F.make_flow_unipc_schedule(num_steps, flow_shift=flow_shift)
 
-def _timestep(sched, i, x):
-    return torch.full((x.shape[0],), float(sched.timesteps[i]), dtype=torch.float32,
-                      device=x.device)
-
-
-def wan_stepper(model_fn: ModelFn, *, num_steps: int = 8, flow_shift: float = 3.0):
-    """``(init, step)``: ``step(state, i, text_embeds, generator)`` is one
-    UniPC step."""
-    sched = F.make_flow_unipc_schedule(num_steps, flow_shift=flow_shift)
-
-    def init(noise):
+    def init(self, noise):
         return F.unipc_init(noise.float())
 
-    def step(state, i, text_embeds, generator):
-        t = _timestep(sched, i, state.x)
-        v = model_fn(state.x, t, text_embeds, fold_generator(generator, i))
-        return _update(F.unipc_step, sched, state, v.float(), i)
-
-    return init, step
+    def update(self, state, v, i, generator, xi=None):
+        with tracing.span("sample.update"):
+            return F.unipc_step(self.sched, state, v, i)
 
 
-def wan_stepper_reuse(model_fn: ModelFn, *, num_steps: int = 8, flow_shift: float = 3.0):
-    """``(init, refresh, reuse)``: ``refresh`` predicts the per-layer ASA
-    masks at step ``i`` alongside the velocity and returns them;
-    ``reuse(state, masks, i, ...)`` replays them, skipping the predictor."""
-    sched = F.make_flow_unipc_schedule(num_steps, flow_shift=flow_shift)
+class SDEDPM:
+    """CogVideoX's v-prediction SDE-DPM++(2M), trailing spacing over
+    ``ddpm_schedule`` (default ``make_ddpm_schedule()``)."""
 
-    def init(noise):
-        return F.unipc_init(noise.float())
+    def __init__(self, num_steps: int = 8, ddpm_schedule=None):
+        self.sched = make_dpm_schedule(ddpm_schedule or D.make_ddpm_schedule(), num_steps)
 
-    def refresh(state, i, text_embeds, generator):
-        t = _timestep(sched, i, state.x)
-        v, masks = model_fn(state.x, t, text_embeds, fold_generator(generator, i),
-                            collect_mask=True)
-        return _update(F.unipc_step, sched, state, v.float(), i), masks
+    def init(self, noise):
+        return dpm_init(noise.float())
 
-    def reuse(state, masks, i, text_embeds, generator):
-        t = _timestep(sched, i, state.x)
-        v = model_fn(state.x, t, text_embeds, fold_generator(generator, i), masks=masks)
-        return _update(F.unipc_step, sched, state, v.float(), i)
-
-    return init, refresh, reuse
+    def update(self, state, v, i, generator, xi=None):
+        if xi is None:
+            g = fold_generator(fold_generator(generator, i), 1)
+            xi = torch.randn(state.x.shape, generator=g, device=state.x.device,
+                             dtype=torch.float32)
+        with tracing.span("sample.update"):
+            return dpm_step(self.sched, state, v, i, xi)
 
 
-def sample_wan(
-    model_fn: ModelFn,
-    noise: torch.Tensor,
-    text_embeds: torch.Tensor,
-    *,
-    generator: torch.Generator,
-    num_steps: int = 8,
-    flow_shift: float = 3.0,
-    mask_refresh_every: int = 0,
-) -> torch.Tensor:
-    """Flow-matching sampling for Wan: noise -> clean latents (f32).
+def step(model_fn: ModelFn, solver, state, i, text_embeds, generator, *, masks=None,
+         collect_mask=False, xi=None):
+    """Step ``i``: the model's prediction, then the solver's update.
+    ``masks`` replays per-layer ASA masks, skipping the predictor;
+    ``collect_mask`` returns ``(state, masks)`` with the masks the model
+    predicted."""
+    kwargs = {} if masks is None else {"masks": masks}
+    if collect_mask:
+        kwargs["collect_mask"] = True
+    t = torch.full((state.x.shape[0],), float(solver.sched.timesteps[i]), dtype=torch.float32,
+                   device=state.x.device)
+    out = model_fn(state.x, t, text_embeds, fold_generator(generator, i), **kwargs)
+    if collect_mask:
+        v, masks = out
+        return solver.update(state, v.float(), i, generator, xi), masks
+    return solver.update(state, out.float(), i, generator, xi)
+
+
+def sample(model_fn: ModelFn, solver, noise: torch.Tensor, text_embeds: torch.Tensor, *,
+           generator: torch.Generator, mask_refresh_every: int = 0) -> torch.Tensor:
+    """Noise -> clean latents (f32).
 
     ``mask_refresh_every > 1`` reuses the per-layer ASA masks: predicted on
     steps ``i % n == 0`` (the model's ``collect_mask`` protocol) and
     replayed in between.  0/1 = off.
     """
-    if mask_refresh_every and mask_refresh_every > 1:
-        init, refresh, reuse = wan_stepper_reuse(model_fn, num_steps=num_steps,
-                                                 flow_shift=flow_shift)
-        state, masks = init(noise), None
-        for i in range(num_steps):
-            with tracing.span("sample.step"):
-                if i % mask_refresh_every == 0:
-                    state, masks = refresh(state, i, text_embeds, generator)
-                else:
-                    state = reuse(state, masks, i, text_embeds, generator)
-        return state.x
-
-    init, step = wan_stepper(model_fn, num_steps=num_steps, flow_shift=flow_shift)
-    state = init(noise)
-    for i in range(num_steps):
+    state, masks = solver.init(noise), None
+    for i in range(solver.sched.num_steps):
         with tracing.span("sample.step"):
-            state = step(state, i, text_embeds, generator)
-    return state.x
-
-
-def _cog_schedule(num_steps, ddpm_schedule):
-    return make_dpm_schedule(ddpm_schedule or D.make_ddpm_schedule(), num_steps)
-
-
-def _sde_noise(x, generator, i):
-    g = fold_generator(fold_generator(generator, i), 1)
-    return torch.randn(x.shape, generator=g, device=x.device, dtype=torch.float32)
-
-
-def cog_stepper(model_fn: ModelFn, *, num_steps: int = 8, ddpm_schedule=None):
-    """``(init, step)``: ``step(state, i, text_embeds, generator, xi=None)``
-    is one SDE-DPM++(2M) step; ``xi`` overrides the step's drawn noise."""
-    sched = _cog_schedule(num_steps, ddpm_schedule)
-
-    def init(noise):
-        return dpm_init(noise.float())
-
-    def step(state, i, text_embeds, generator, xi=None):
-        t = _timestep(sched, i, state.x)
-        v = model_fn(state.x, t, text_embeds, fold_generator(generator, i))
-        xi = _sde_noise(state.x, generator, i) if xi is None else xi
-        return _update(dpm_step, sched, state, v.float(), i, xi)
-
-    return init, step
-
-
-def cog_stepper_reuse(model_fn: ModelFn, *, num_steps: int = 8, ddpm_schedule=None):
-    """``(init, refresh, reuse)``, the mask-reuse decomposition of
-    :func:`cog_stepper` (same protocol as :func:`wan_stepper_reuse`)."""
-    sched = _cog_schedule(num_steps, ddpm_schedule)
-
-    def init(noise):
-        return dpm_init(noise.float())
-
-    def refresh(state, i, text_embeds, generator, xi=None):
-        t = _timestep(sched, i, state.x)
-        v, masks = model_fn(state.x, t, text_embeds, fold_generator(generator, i),
-                            collect_mask=True)
-        xi = _sde_noise(state.x, generator, i) if xi is None else xi
-        return _update(dpm_step, sched, state, v.float(), i, xi), masks
-
-    def reuse(state, masks, i, text_embeds, generator, xi=None):
-        t = _timestep(sched, i, state.x)
-        v = model_fn(state.x, t, text_embeds, fold_generator(generator, i), masks=masks)
-        xi = _sde_noise(state.x, generator, i) if xi is None else xi
-        return _update(dpm_step, sched, state, v.float(), i, xi)
-
-    return init, refresh, reuse
-
-
-def sample_cogvideox(
-    model_fn: ModelFn,
-    noise: torch.Tensor,
-    text_embeds: torch.Tensor,
-    *,
-    generator: torch.Generator,
-    num_steps: int = 8,
-    ddpm_schedule=None,
-    mask_refresh_every: int = 0,
-) -> torch.Tensor:
-    """v-prediction SDE-DPM++(2M) sampling with trailing spacing
-    (CogVideoX): noise -> clean latents (f32); ``mask_refresh_every`` as in
-    :func:`sample_wan`."""
-    if mask_refresh_every and mask_refresh_every > 1:
-        init, refresh, reuse = cog_stepper_reuse(model_fn, num_steps=num_steps,
-                                                 ddpm_schedule=ddpm_schedule)
-        state, masks = init(noise), None
-        for i in range(num_steps):
-            with tracing.span("sample.step"):
-                if i % mask_refresh_every == 0:
-                    state, masks = refresh(state, i, text_embeds, generator)
-                else:
-                    state = reuse(state, masks, i, text_embeds, generator)
-        return state.x
-    init, step = cog_stepper(model_fn, num_steps=num_steps, ddpm_schedule=ddpm_schedule)
-    state = init(noise)
-    for i in range(num_steps):
-        with tracing.span("sample.step"):
-            state = step(state, i, text_embeds, generator)
+            if mask_refresh_every > 1 and i % mask_refresh_every == 0:
+                state, masks = step(model_fn, solver, state, i, text_embeds, generator,
+                                    collect_mask=True)
+            else:
+                state = step(model_fn, solver, state, i, text_embeds, generator, masks=masks)
     return state.x

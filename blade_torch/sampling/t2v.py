@@ -5,24 +5,19 @@ flow UniPC, f32 streaming Wan VAE decode) and CogVideoX (8-step
 SDE-DPM++(2M), f32 CogVideoX VAE decode in ``frame_batch=2`` chunks,
 spatially tiled at 480p).  The text encoder is not ported yet, so callers
 hand in text embeddings ``[B, max_text_len, text_dim]``.  All entry points
-run under ``torch.inference_mode``.
+run under ``torch.inference_mode``.  What differs by family comes from the
+preset's ``Family`` record (``blade_torch.config``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Optional
 
 import torch
 
-from blade_torch.config import FamilyPreset, default_mask_mode, derive_asa_config
-from blade_torch.models.cogvideox_dit import CogVideoXModel
-from blade_torch.models.vae import tiled_decode, uniform_tiling
-from blade_torch.models.vae_cogvideox import CogVideoXVAE, chunked_decode
-from blade_torch.models.vae_wan import WanVAE, streaming_decode
-from blade_torch.models.wan_dit import WanModel
-from blade_torch.sampling.pipeline import sample_cogvideox, sample_wan
-from blade_torch.schedulers.ddpm import make_ddpm_schedule
+from blade_torch.config import FamilyPreset, derive_asa_config
+from blade_torch.sampling.pipeline import sample
 from blade_torch.utils import tracing
 from blade_torch.utils.rng import fold_generator
 
@@ -34,8 +29,8 @@ class T2VPipeline:
     """A DiT + VAE decoder for one preset, on one device."""
 
     preset: FamilyPreset
-    dit: Union[WanModel, CogVideoXModel]
-    vae: Union[WanVAE, CogVideoXVAE]
+    dit: torch.nn.Module  # the family's DiT and VAE classes
+    vae: torch.nn.Module
     sparse: bool = True
     mask_mode: str = "energy"
 
@@ -47,18 +42,15 @@ class T2VPipeline:
         The DiT computes in ``dtype``; the VAE decodes in f32.  ``mask_mode``
         defaults to the family's serving lane (multilevel for CogVideoX,
         energy for Wan)."""
-        mask_mode = mask_mode or default_mask_mode(preset)
+        family = preset.family
+        mask_mode = mask_mode or family.mask_mode
         kwargs = {}
         if sparse:
             from blade_torch.attention.integration import asa_model_kwargs
 
             kwargs = asa_model_kwargs(derive_asa_config(preset, mask_mode))
-        if preset.name == "wan":
-            dit = WanModel(preset.dit, dtype=dtype, device=device, **kwargs)
-            vae = WanVAE(preset.vae, device=device)
-        else:
-            dit = CogVideoXModel(preset.dit, dtype=dtype, device=device, **kwargs)
-            vae = CogVideoXVAE(preset.vae, device=device)
+        dit = family.dit_class(preset.dit, dtype=dtype, device=device, **kwargs)
+        vae = family.vae_class(preset.vae, device=device)
         return cls(preset=preset, dit=dit.eval(), vae=vae.eval(), sparse=sparse,
                    mask_mode=mask_mode)
 
@@ -84,13 +76,7 @@ class T2VPipeline:
 
     def latent_shape(self, batch: int):
         """Wan ``[B, C, T, H, W]``; CogVideoX ``[B, T, C, H, W]``."""
-        p = self.preset
-        t, h, w = p.latent_grid()
-        if p.name == "wan":
-            pt, ph, pw = p.dit.patch_size
-            return (batch, p.dit.in_channels, t * pt, h * ph, w * pw)
-        ps = p.dit.patch_size
-        return (batch, t, p.dit.in_channels, h * ps, w * ps)
+        return self.preset.family.latent_shape(self.preset, batch)
 
     def model_fn(self):
         def fn(latents, timestep, text_embeds, generator, masks=None,
@@ -112,53 +98,25 @@ class T2VPipeline:
             noise = torch.randn(self.latent_shape(b), generator=fold_generator(generator, 0),
                                 device=self.device, dtype=torch.float32).to(self.dtype)
             refresh = mask_refresh_every if self.sparse else 0
-            p = self.preset
-            if p.name == "wan":
-                return sample_wan(self.model_fn(), noise, text_embeds, generator=generator,
-                                  num_steps=num_steps, flow_shift=p.flow_shift or 3.0,
-                                  mask_refresh_every=refresh)
-            return sample_cogvideox(
-                self.model_fn(), noise, text_embeds, generator=generator,
-                num_steps=num_steps,
-                ddpm_schedule=make_ddpm_schedule(
-                    snr_shift_scale=p.snr_shift_scale,
-                    rescale_betas_zero_snr=p.rescale_betas_zero_snr),
-                mask_refresh_every=refresh)
+            solver = self.preset.family.solver(self.preset, num_steps)
+            return sample(self.model_fn(), solver, noise, text_embeds, generator=generator,
+                          mask_refresh_every=refresh)
 
     @torch.inference_mode()
     def decode_latents(self, latents):
         """Model-layout latents -> frames ``[B, T', H', W', 3]`` float in
-        [-1, 1], f32.  Wan: streaming decode with conv-state carry.
-        CogVideoX (more than 3 latent frames): ``frame_batch=2`` chunks, in
-        uniform spatial tiles of at most 20 latent pixels once the frame
-        holds 1024 latent pixels or more (JAX's decode path)."""
+        [-1, 1], f32, by the family's decode (``Family.decode``)."""
         with tracing.timed("decode"):
             return self._decode(latents)
 
     def _decode(self, latents):
-        vae_cfg = self.preset.vae
-        if self.preset.name == "wan":
-            z = latents.permute(0, 2, 3, 4, 1)  # BCTHW -> BTHWC
-        else:
-            z = latents.permute(0, 1, 3, 4, 2)  # BTCHW -> BTHWC
-        z = z.float() / vae_cfg.scaling_factor
+        family, vae_cfg = self.preset.family, self.preset.vae
+        z = family.to_bthwc(latents).float() / vae_cfg.scaling_factor
         if vae_cfg.latents_mean is not None:
             std = torch.tensor(vae_cfg.latents_std, device=z.device)
             mean = torch.tensor(vae_cfg.latents_mean, device=z.device)
             z = z * std + mean
-        if isinstance(self.vae, WanVAE) and z.shape[1] > 2:
-            out = streaming_decode(self.vae, z)
-        elif isinstance(self.vae, CogVideoXVAE) and z.shape[1] > 3:
-            if z.shape[2] * z.shape[3] >= 1024:
-                (th, oh), (tw, ow) = uniform_tiling(z.shape[2], 20), uniform_tiling(z.shape[3], 20)
-                out = tiled_decode(lambda zz: chunked_decode(self.vae, zz, frame_batch=2), z,
-                                   tile_latent=(th, tw), overlap=(oh, ow),
-                                   spatial_factor=vae_cfg.spatial_factor)
-            else:
-                out = chunked_decode(self.vae, z, frame_batch=2)
-        else:
-            out = self.vae.decode(z)
-        return out.clamp(-1.0, 1.0)
+        return family.decode(self.vae, z).clamp(-1.0, 1.0)
 
     @staticmethod
     def frames_to_uint8(frames: torch.Tensor) -> torch.Tensor:

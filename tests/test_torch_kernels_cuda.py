@@ -962,7 +962,7 @@ def _tdm_convergence_run(dev, lane, dtype=torch.bfloat16):
     from blade_torch.attention.integration import asa_model_kwargs
     from blade_torch.cli.train import model_apply_fn
     from blade_torch.models.wan_dit import WAN_TINY, WanModel
-    from blade_torch.sampling.pipeline import sample_wan
+    from blade_torch.sampling.pipeline import FlowUniPC, sample
     from blade_torch.schedulers import unipc_flow as F
     from blade_torch.training import tdm
     from blade_torch.utils.rng import fold_generator, make_generator
@@ -1008,8 +1008,9 @@ def _tdm_convergence_run(dev, lane, dtype=torch.bfloat16):
 
     eval_noise = torch.randn(lat_shape, generator=make_generator(10, dev), device=dev)
     with torch.no_grad():
-        teacher = sample_wan(lambda x, t, te, g, **kw: apply(base, x, t, te, g), eval_noise,
-                             text, generator=make_generator(11, dev), num_steps=30)
+        teacher = sample(lambda x, t, te, g, **kw: apply(base, x, t, te, g),
+                         FlowUniPC(num_steps=30), eval_noise, text,
+                         generator=make_generator(11, dev))
     eval_gens = [fold_generator(make_generator(12, dev), k) for k in range(cfg.k_step)]
     eval_xis = [torch.randn(lat_shape, generator=fold_generator(g, 1), device=dev)
                 for g in eval_gens]

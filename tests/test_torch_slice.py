@@ -28,7 +28,7 @@ from blade_torch import config as tconfig
 from blade_torch.convert.from_jax import to_torch, wan_transformer_state_dict, wan_vae_state_dict
 from blade_torch.models.vae_wan import WAN21_VAE_TINY as T_VAE_TINY
 from blade_torch.models.wan_dit import WanConfig as TWanConfig
-from blade_torch.sampling.pipeline import sample_wan as t_sample_wan
+from blade_torch.sampling.pipeline import FlowUniPC, sample
 from blade_torch.sampling.t2v import T2VPipeline as TPipeline
 from blade_torch.utils.rng import make_generator
 
@@ -78,8 +78,8 @@ def test_sparse_sampling_and_streaming_decode_match_jax():
                         rng=jax.random.PRNGKey(5), num_steps=4)
     jframes = np.asarray(jpipe.decode_latents(jlat))
     with torch.inference_mode():
-        tlat = t_sample_wan(tpipe.model_fn(), torch.from_numpy(noise), torch.from_numpy(text),
-                            generator=make_generator(5), num_steps=4)
+        tlat = sample(tpipe.model_fn(), FlowUniPC(num_steps=4), torch.from_numpy(noise),
+                      torch.from_numpy(text), generator=make_generator(5))
         tframes = tpipe.decode_latents(tlat)
         u8 = tpipe.frames_to_uint8(tframes)
 

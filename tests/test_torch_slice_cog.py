@@ -38,7 +38,8 @@ from blade_torch.convert.from_jax import (
 from blade_torch.kernels._build import KERNELS
 from blade_torch.models.cogvideox_dit import COGVIDEOX_TINY as T_COG_TINY
 from blade_torch.models.vae_cogvideox import COGVIDEOX_VAE_TINY as T_VAE_TINY
-from blade_torch.sampling.pipeline import cog_stepper_reuse as t_stepper
+from blade_torch.sampling.pipeline import SDEDPM
+from blade_torch.sampling.pipeline import step as t_step
 from blade_torch.sampling.t2v import T2VPipeline as TPipeline
 from blade_torch.schedulers.ddpm import make_ddpm_schedule as t_ddpm
 from blade_torch.utils.rng import make_generator
@@ -84,9 +85,9 @@ def test_multilevel_sampling_and_tiled_decode_match_jax():
 
     j_init, j_refresh, _ = j_stepper(jpipe.model_fn(), num_steps=STEPS,
                                      ddpm_schedule=j_ddpm())
-    t_init, _, t_reuse = t_stepper(tpipe.model_fn(), num_steps=STEPS, ddpm_schedule=t_ddpm())
+    solver = SDEDPM(num_steps=STEPS, ddpm_schedule=t_ddpm())
     j_refresh = jax.jit(j_refresh)
-    jstate, tstate = j_init(jnp.asarray(noise)), t_init(torch.from_numpy(noise))
+    jstate, tstate = j_init(jnp.asarray(noise)), solver.init(torch.from_numpy(noise))
     ttext, gen = torch.from_numpy(text), make_generator(5)
     for i in range(STEPS):
         jstate, (idx, cnt) = j_refresh(jstate, jnp.int32(i), jnp.asarray(text), key)
@@ -95,7 +96,8 @@ def test_multilevel_sampling_and_tiled_decode_match_jax():
         masks = (torch.from_numpy(np.array(idx)), torch.from_numpy(np.array(cnt)))
         assert masks[0].shape == (2, 1, 2, 6, 4, 128)
         with torch.inference_mode():
-            tstate = t_reuse(tstate, masks, i, ttext, gen, xi=torch.from_numpy(np.array(xi)))
+            tstate = t_step(tpipe.model_fn(), solver, tstate, i, ttext, gen, masks=masks,
+                            xi=torch.from_numpy(np.array(xi)))
     jlat, tlat = jstate.x, tstate.x
     jframes = np.asarray(jpipe.decode_latents(jlat))
     with torch.inference_mode():

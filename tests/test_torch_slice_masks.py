@@ -23,7 +23,7 @@ from blade_torch import config as tconfig
 from blade_torch.convert.from_jax import to_torch, wan_transformer_state_dict
 from blade_torch.models.vae_wan import WAN21_VAE_TINY as T_VAE_TINY
 from blade_torch.models.wan_dit import WanConfig as TWanConfig
-from blade_torch.sampling.pipeline import sample_wan
+from blade_torch.sampling.pipeline import FlowUniPC, sample
 from blade_torch.sampling.t2v import T2VPipeline as TPipeline
 from blade_torch.utils.rng import make_generator
 
@@ -90,7 +90,7 @@ def test_mask_reuse_matches_per_step_prediction_at_full_retention():
     tpipe = TPipeline.random_init(tpreset, make_generator(4), dtype=torch.float32)
     x, _, text = _inputs()
     with torch.inference_mode():
-        runs = [sample_wan(tpipe.model_fn(), torch.from_numpy(x), torch.from_numpy(text),
-                           generator=make_generator(5), num_steps=3, mask_refresh_every=n)
+        runs = [sample(tpipe.model_fn(), FlowUniPC(num_steps=3), torch.from_numpy(x),
+                       torch.from_numpy(text), generator=make_generator(5), mask_refresh_every=n)
                 for n in (0, 2)]
     torch.testing.assert_close(runs[0], runs[1], atol=0, rtol=0)

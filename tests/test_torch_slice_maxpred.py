@@ -35,7 +35,7 @@ from blade_torch.attention import masks as tmasks
 from blade_torch.convert.from_jax import to_torch, wan_transformer_state_dict, wan_vae_state_dict
 from blade_torch.models.vae_wan import WAN21_VAE_TINY as T_VAE_TINY
 from blade_torch.models.wan_dit import WanConfig as TWanConfig
-from blade_torch.sampling.pipeline import sample_wan as t_sample_wan
+from blade_torch.sampling.pipeline import FlowUniPC, sample
 from blade_torch.sampling.t2v import T2VPipeline as TPipeline
 from blade_torch.utils.rng import make_generator
 
@@ -116,8 +116,8 @@ def test_max_predictor_sampling_and_decode_match_jax(pipelines):
                         rng=jax.random.PRNGKey(5), num_steps=2)
     jframes = np.asarray(jpipe.decode_latents(jlat))
     with torch.inference_mode():
-        tlat = t_sample_wan(tpipe.model_fn(), torch.from_numpy(noise), torch.from_numpy(text),
-                            generator=make_generator(5), num_steps=2)
+        tlat = sample(tpipe.model_fn(), FlowUniPC(num_steps=2), torch.from_numpy(noise),
+                      torch.from_numpy(text), generator=make_generator(5))
         tframes = tpipe.decode_latents(tlat)
     assert tframes.shape == jframes.shape == (1, 7, 60, 64, 3)
     assert torch.isfinite(tlat).all()

@@ -33,7 +33,8 @@ from blade_torch.convert.from_jax import to_torch, wan_transformer_state_dict, w
 from blade_torch.kernels.multilevel_attn import fused_supported as t_fused_supported
 from blade_torch.models.vae_wan import WAN21_VAE_TINY as T_VAE_TINY
 from blade_torch.models.wan_dit import WanConfig as TWanConfig
-from blade_torch.sampling.pipeline import wan_stepper_reuse as t_stepper
+from blade_torch.sampling.pipeline import FlowUniPC
+from blade_torch.sampling.pipeline import step as t_step
 from blade_torch.sampling.t2v import T2VPipeline as TPipeline
 from blade_torch.utils.rng import make_generator
 
@@ -81,9 +82,9 @@ def test_per_level_sampling_and_decode_match_jax():
     key = jax.random.PRNGKey(5)
 
     j_init, j_refresh, _ = j_stepper(jpipe.model_fn(), num_steps=STEPS, flow_shift=5.0)
-    t_init, _, t_reuse = t_stepper(tpipe.model_fn(), num_steps=STEPS, flow_shift=5.0)
+    solver = FlowUniPC(num_steps=STEPS, flow_shift=5.0)
     j_refresh = jax.jit(j_refresh)
-    jstate, tstate = j_init(jnp.asarray(noise)), t_init(torch.from_numpy(noise))
+    jstate, tstate = j_init(jnp.asarray(noise)), solver.init(torch.from_numpy(noise))
     ttext, gen = torch.from_numpy(text), make_generator(5)
     for i in range(STEPS):
         jstate, levels = j_refresh(jstate, jnp.int32(i), jnp.asarray(text), key)
@@ -92,7 +93,7 @@ def test_per_level_sampling_and_decode_match_jax():
         assert levels.shape == (2, 1, 4, 8, 8) and levels.dtype == torch.int32
         assert set(levels.unique().tolist()) == {0, 1, 2, 4, 8}
         with torch.inference_mode():
-            tstate = t_reuse(tstate, levels, i, ttext, gen)
+            tstate = t_step(tpipe.model_fn(), solver, tstate, i, ttext, gen, masks=levels)
     jlat, tlat = jstate.x, tstate.x
     jframes = np.asarray(jpipe.decode_latents(jlat))
     with torch.inference_mode():

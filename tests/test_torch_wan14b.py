@@ -46,7 +46,7 @@ def test_wan_14b_720p_geometry():
     assert p.flow_shift == 5.0 and p.video == C.VideoSpec(81, 720, 1280, fps=16)
     # the CLI: Wan's default lane stays energy; --mask_mode multilevel picks
     # this slice's lane
-    assert C.default_mask_mode(p) == "energy"
+    assert p.family.mask_mode == "energy"
     args = cli.get_args(["--preset", "wan-14b-720p", "--mask_mode", "multilevel",
                          "--random-init", "--prompt", "x"])
     assert C.derive_asa_config(C.PRESETS[args.preset], args.mask_mode).mask_mode == "multilevel"
