@@ -20,9 +20,11 @@ Counterpart of ``blade/attention/asa.py``:
      (``fused_supported``) the scores are mean-pooled to
      ``multilevel_q_rows`` query rows and the per-level lists drive the
      fused multi-level kernel; elsewhere (e.g. Wan2.1-14B 720p) the int
-     level mask at 128-row granularity drives the per-level lane.  Both
-     lanes are differentiable in q, k, v; the predictor runs without
-     gradient (JAX's ``stop_gradient``).
+     level mask at 128-row granularity is the mask artifact: on the card
+     its lists, built inside each call, drive the same kernel in one carry;
+     on the CPU it drives the per-level lane.  Both lanes are
+     differentiable in q, k, v; the predictor runs without gradient (JAX's
+     ``stop_gradient``).
   4. Restore the token order.
 
 Randomness (the predictor's token subsampling) comes from an explicit

@@ -11,23 +11,29 @@ and values with a ``+log(L)`` score bias; all levels share one softmax.
   builds the level-1 and pooled records in one pass and
   ``bt_multilevel_fwd`` (``csrc/gather_attn.cu``) walks the four lists
   into one online-softmax carry.
-* The per-level lane (every other geometry, e.g. Wan2.1-14B 720p with 591
-  key blocks) takes an int level mask at 128-row granularity.  Level 1 runs
-  ``block_sparse_attention`` (``pack_kv`` + the sparse kernel); each pooled
-  level runs ``bt_pooled_level_fwd`` (``csrc/gather_attn.cu``) over
-  that level's ``pack_kv_pyramid`` records; the four ``(out, lse)`` pairs
-  are merged exactly by LSE in f32.
+* The level carry (on the card, past JAX's rule: an int level mask at
+  128-row granularity with d in {64, 128}, e.g. Wan2.1-14B 720p with 591
+  key blocks): the mask's four lists are built inside the call and the
+  fused lane's pyramid pack and kernel run over them.  The rule bounds
+  what a TPU keeps resident in VMEM; the CUDA kernel keeps nothing
+  resident across blocks, so the bound does not exist on the card.
+* The per-level lane (every other geometry past the rule, every CPU call
+  past it, and ``fused=False``) takes an int level mask at 128-row
+  granularity.  Level 1 runs ``block_sparse_attention`` (``pack_kv`` + the
+  sparse kernel); each pooled level runs ``bt_pooled_level_fwd``
+  (``csrc/gather_attn.cu``) over that level's ``pack_kv_pyramid``
+  records; the four ``(out, lse)`` pairs are merged exactly by LSE in f32.
 
 Both lanes are differentiable in ``q, k, v``, each through one
 ``torch.autograd.Function``, the counterpart of JAX's custom VJPs:
 
-* fused lane (``_fused_ml_core_bwd``): the four level masks are rebuilt
-  from the lists (each mask row repeated onto its 128-row tiles when
-  ``q_rows`` is 256) and four passes run against the GLOBAL merged ``(out,
-  lse)``: level 1 through the block-sparse backward kernels
-  (``block_sparse_attn.attention_backward``), levels 2, 4, 8 through the
-  pooled-level backward kernels (``csrc/pooled_level_bwd.cu``) with a
-  ``+log(L)`` bias; the passes sum;
+* fused lane and level carry (``_fused_ml_core_bwd``): the four level
+  masks are rebuilt from the lists (each mask row repeated onto its
+  128-row tiles when ``q_rows`` is 256) and four passes run against the
+  GLOBAL merged ``(out, lse)``: level 1 through the block-sparse backward
+  kernels (``block_sparse_attn.attention_backward``), levels 2, 4, 8
+  through the pooled-level backward kernels (``csrc/pooled_level_bwd.cu``)
+  with a ``+log(L)`` bias; the passes sum;
 * per-level lane (``_pooled_level_core_bwd``): level 1 is
   ``block_sparse_attention``'s own Function, the three pooled levels one
   Function over a shared pyramid whose backward runs each level against
@@ -400,18 +406,23 @@ class _PooledLevels(torch.autograd.Function):
                 _unpool(dvs, ctx.lk).to(q.dtype), None, None)
 
 
+def _level_mask(q, k, levels, lane):
+    """``levels`` on q's device, checked to be a 128-row level mask
+    ``[B, H, ceil(Lq/128), ceil(Lk/128)]`` of ``q`` and ``k``."""
+    b, h, lq, _ = q.shape
+    shape = (b, h, -(-lq // KV_BLOCK), -(-k.shape[2] // KV_BLOCK))
+    if tuple(levels.shape) != shape:
+        raise ValueError(f"{lane} takes a 128-row level mask {shape}, "
+                         f"got {tuple(levels.shape)}")
+    return levels.to(q.device)
+
+
 def _multilevel_per_level(q, k, v, levels, scale):
     """JAX's per-level lane (``multilevel_attn.py:420-463``): level 1 through
     the block-sparse kernel, each pooled level through the pooled-level
     kernel over the edge-padded pyramid, an exact f32 LSE merge of the four
     ``(out, lse)`` pairs (each ``out`` in q's dtype, as JAX rounds it)."""
-    b, h, lq, d = q.shape
-    lk = k.shape[2]
-    n_qt, n_kt = -(-lq // KV_BLOCK), -(-lk // KV_BLOCK)
-    if tuple(levels.shape) != (b, h, n_qt, n_kt):
-        raise ValueError(f"the per-level lane takes a 128-row level mask {(b, h, n_qt, n_kt)}, "
-                         f"got {tuple(levels.shape)}")
-    levels = levels.to(q.device)
+    levels = _level_mask(q, k, levels, "the per-level lane")
     out1, lse1 = block_sparse_attention(q, k, v, levels == 1, scale=scale)
     # A block recomputed in a backward opens the spans and counts nothing.
     counted = tracing.active() and not tracing.recomputing()
@@ -423,6 +434,19 @@ def _multilevel_per_level(q, k, v, levels, scale):
     if counted:
         tracing.count("asa.per_level_calls")
     return out
+
+
+def _level_carry(q, k, v, levels, scale):
+    """An int level mask at 128-row mask rows past JAX's fused rule, on the
+    card: its four lists, built here (kept past the call only for a
+    backward), drive the fused lane's one carry (``pack_kv_pyramid`` +
+    ``bt_multilevel_fwd``)."""
+    levels = _level_mask(q, k, levels, "the level carry")
+    with tracing.span("asa.level_lists"):
+        idx, cnt = levels_to_lists(levels)
+    if tracing.active() and not tracing.recomputing():
+        tracing.count("asa.level_carry_calls")
+    return _FusedMultilevel.apply(q, k, v, idx, cnt, KV_BLOCK, float(scale))
 
 
 def multilevel_attention(
@@ -445,9 +469,11 @@ def multilevel_attention(
     Mask row ``i`` covers queries ``[i * q_rows, (i + 1) * q_rows)`` with
     ``n_q = ceil(Lq / q_rows)``; ``q_rows`` is 128 or 256.
 
-    ``fused=None`` picks the fused lane where ``fused_supported`` holds and
-    the per-level lane elsewhere; ``False`` forces the per-level lane, which
-    takes an int level mask with ``q_rows == 128`` only.
+    ``fused=None`` picks the fused lane where ``fused_supported`` holds;
+    elsewhere an int level mask at ``q_rows == 128`` with ``D`` in {64, 128}
+    on the card takes the level carry, and anything else the per-level
+    lane.  ``False`` forces the per-level lane, which takes an int level
+    mask with ``q_rows == 128`` only.
     """
     b, h, lq, d = q.shape
     lk = k.shape[2]
@@ -460,6 +486,9 @@ def multilevel_attention(
         scale = 1.0 / math.sqrt(d)
     if fused is None:
         fused = fused_supported(d, lk, q.element_size())
+        if (not fused and q.is_cuda and lists is None and levels is not None
+                and q_rows == KV_BLOCK and d in (64, 128)):
+            return _level_carry(q, k, v, levels, scale)
     if not fused:
         if lists is not None:
             raise ValueError("precomputed lists require the fused lane")

@@ -31,8 +31,9 @@ Spans, by layer (``blade.`` omitted):
   ``asa.sparse`` (the block-sparse or multilevel kernel with its packing;
   on the per-level multilevel lane it holds ``asa.levels``, the pyramid
   pack and the three pooled levels, and ``asa.level_merge``, the four-way
-  LSE merge), ``asa.pooled`` (the pooled K/V and its dense call),
-  ``asa.merge`` (LSE merge and cast);
+  LSE merge; on the level carry ``asa.level_lists``, the four lists built
+  from the int level mask), ``asa.pooled`` (the pooled K/V and its dense
+  call), ``asa.merge`` (LSE merge and cast);
 - VAE: ``decode`` (``decode_latents``), ``decode.tile`` (a spatial tile),
   ``decode.chunk`` (a temporal chunk);
 - trainer: ``tdm.step`` (``train_step``), ``tdm.rollout``, ``tdm.merge``
@@ -50,8 +51,10 @@ backward, counted there alone), ``dit.cross_attn.calls`` (Wan's text
 cross-attention, one a block) and ``dit.cross_attn.recomputed_calls`` (those
 of blocks recomputed in a backward, counted there alone), ``host_syncs``,
 ``asa.per_level_calls`` (calls of the per-level multilevel lane, those of
-blocks recomputed in a backward left out) and, from :func:`timed` spans,
-``sample.seconds``, ``decode.seconds``, ``asa.levels.seconds`` and
+blocks recomputed in a backward left out), ``asa.level_carry_calls`` (calls
+of the level carry, an int level mask past the fused lane's rule run as
+one carry on the card; left out where recomputed) and, from :func:`timed`
+spans, ``sample.seconds``, ``decode.seconds``, ``asa.levels.seconds`` and
 ``asa.level_merge.seconds`` (the per-level lane's two spans, left out where
 recomputed).
 """

@@ -83,23 +83,30 @@ no result):
    against its plain version at Wan2.1-14B 720p shapes (B=1, H=40, d=128,
    L=75600, a level mask from the real predictor), once for each of levels
    2, 4 and 8, and the sparse kernel on the level-1 lists (its plain
-   version on 4 heads); then the whole per-level multilevel lane and dense
-   flash attention at that shape, timed;
+   version on 4 heads); then the whole multilevel lane as routed (the
+   level carry) and dense flash attention at that shape, timed; then the
+   level carry at that shape: the multi-level kernel alone over the
+   mask's four lists against its plain version on 4 heads, the list
+   building alone, and the carry whole (lists, pyramid pack, one
+   multi-level launch) in turns with the per-level lane whole
+   (``fused=False``: pack, sparse, pyramid pack, three pooled-level
+   launches, the f32 merge);
 13. the Wan2.1-14B serving path: the full-width, full-depth
    ``wan-14b-720p`` preset with ``--mask_mode multilevel`` (40 blocks, dim
-   5120, 40 heads of 128, 591 key blocks: the per-level lane) on random
+   5120, 40 heads of 128, 591 key blocks: the level carry) on random
    weights, bf16 projections, serves one request after a warm-up forward
    (8 UniPC steps, flow shift 5, CFG 1, f32 streaming VAE decode, uint8
    frames ``(1, 81, 720, 1280, 3)``), with exact launch counts (320 each of
-   the sparse, pack and pyramid-pack kernels and ``heads_unpack``, 640 dense
+   the multi-level and pyramid-pack kernels and ``heads_unpack``, 640 dense
    (the predictor and the text cross-attention) and norm_rope, 960
-   pooled-level and ``heads_pack``; no other kernel) and the peak memory of the denoise and
-   of the decode apart, then one dense-attention forward of the same module;
-14. a small-input reference check of the per-level lane: a 2-layer Wan with
-   one head of 128 over 273 key blocks, kernels (bf16, card) against plain
-   versions (f32, CPU), shared weights, the card's int level masks replayed:
-   the velocity and the LoRA gradients of one loss (the per-level half of
-   the multilevel gradient check);
+   ``heads_pack``; no sparse, pack or pooled-level kernel, no other kernel)
+   and the peak memory of the denoise and of the decode apart, then one
+   dense-attention forward of the same module;
+14. a small-input reference check past the fused lane's rule: a 2-layer Wan
+   with one head of 128 over 273 key blocks, kernels (bf16, card: the
+   level carry) against plain versions (f32, CPU: the per-level lane),
+   shared weights, the card's int level masks replayed: the velocity and
+   the LoRA gradients of one loss;
 15. the last three kernels against their plain versions: the "max"
    predictor's pooled-scores kernel (one pass over the sampled keys on
    ``wgmma``) at Wan 480p with 32 and 16 tokens a block and at CogVideoX
@@ -138,11 +145,14 @@ no result):
    autograd of its plain version on 4 heads, and its forward and backward
    timed on all 48;
 20. the same at Wan2.1-14B 720p per-level shapes (p from each level's own
-   lse; the plain version on 8 heads for the kernels, 2 for the lane);
+   lse; the plain version on 8 heads for the kernels, 2 for the lane),
+   the per-level lane forced by ``fused=False``; then the level carry's
+   output against the per-level lane's on the same real predictor mask,
+   and the carry's gradient as the lane's;
 21. a small-input gradient check on the fused multilevel lane, the twin of
-   phase 7 (phase 14 holds the per-level lane's): LoRA gradients through
-   the 2-layer CogVideoX of phase 11, kernels (bf16, card) against plain
-   versions (f32, CPU), the card's lists replayed;
+   phase 7 (phase 14 holds the gradient past the fused rule): LoRA
+   gradients through the 2-layer CogVideoX of phase 11, kernels (bf16,
+   card) against plain versions (f32, CPU), the card's lists replayed;
 22. one full-width LoRA gradient of CogVideoX-5B 480p on its serving lane
    (42 blocks, fused multilevel, q_rows 256, remat): finite, timed, peak
    memory, and exactly a layer one each of ``sparse_dq``, ``sparse_dkv``
@@ -1344,8 +1354,8 @@ def check_wan14b_pooled(torch, dev, checks):
     Wan2.1-14B 720p shapes, one check a level (2 and 4 at the HBM-gather TPU
     kernel's geometry, 8 at the resident-pyramid one), with a level mask
     from the real predictor, and the sparse kernel on its level-1 lists;
-    then the whole per-level lane against dense flash attention at the same
-    shape."""
+    then the whole lane as routed (the level carry) against dense flash
+    attention at the same shape."""
     from blade_torch import config as C
     from blade_torch.attention import asa
     from blade_torch.attention.masks import mask_to_block_lists
@@ -1362,7 +1372,7 @@ def check_wan14b_pooled(torch, dev, checks):
     record = _recorder(checks)
     cfg, dit = C.derive_asa_config(C.WAN_14B_720P, "multilevel"), C.WAN_14B_720P.dit
     h, d, length = dit.num_heads, dit.head_dim, cfg.seq_len
-    assert (h, d, length) == (40, 128, 75600)  # 591 key blocks: the per-level lane
+    assert (h, d, length) == (40, 128, 75600)  # 591 key blocks: past the fused rule
     q, k, v = (torch.randn((1, h, length, d), generator=gen, device=dev).to(torch.bfloat16)
                for _ in range(3))
     levels = asa.compute_mask(q, k, cfg, generator=make_generator(19, dev))
@@ -1412,14 +1422,79 @@ def check_wan14b_pooled(torch, dev, checks):
     del mask1
     lane_ms = _cuda_ms(torch, lambda: multilevel_attention(q, k, v, levels), 3)
     dense_ms = _cuda_ms(torch, lambda: flash_attention(q, k, v), 2)
-    print(f"wan14b attention at [1,{h},{length},{d}]: per-level multilevel lane "
+    print(f"wan14b attention at [1,{h},{length},{d}]: multilevel lane as routed "
           f"{lane_ms:.2f} ms (level mask in, merged out), dense flash {dense_ms:.2f} ms")
     return lane_ms, dense_ms
 
 
+def _carry_vs_per_level(torch, q, k, v, levels):
+    """(max |err|, max |out|) of the level carry's output against the
+    per-level lane's (``fused=False``) on the same level mask: one f32
+    carry and one bf16 rounding against four bf16 outputs merged in f32,
+    held to four bf16 ulps at the largest output."""
+    from blade_torch.kernels.multilevel_attn import multilevel_attention
+
+    with torch.no_grad():
+        out, _ = multilevel_attention(q, k, v, levels)
+        lane, _ = multilevel_attention(q, k, v, levels, fused=False)
+    err, ref = _max_err(out, lane), lane.float().abs().max().item()
+    assert err <= 2 ** -6 * ref, (err, ref)
+    return err, ref
+
+
+def check_wan14b_carry(torch, dev, checks):
+    """Phase 12, last part: the level carry at Wan2.1-14B 720p shapes (B=1,
+    H=40, d=128, L=75600, 591 key blocks; a 128-row level mask from the real
+    predictor): the multi-level kernel alone over the mask's four lists
+    against its plain version on 4 heads; the list building alone; the carry
+    whole (lists, pyramid pack, one multi-level launch) in turns (A B B A)
+    with the per-level lane whole (``fused=False``), and the carry's output
+    against the per-level lane's.  On a package without the carry both
+    sides run the per-level lane."""
+    from blade_torch import config as C
+    from blade_torch.attention import asa
+    from blade_torch.kernels.multilevel_attn import (
+        levels_to_lists, multilevel_attention, multilevel_from_records)
+    from blade_torch.kernels.pack import pack_kv_pyramid
+    from blade_torch.kernels.ref_attention import multilevel_lists_attention
+    from blade_torch.utils.rng import make_generator
+
+    gen = make_generator(2026, dev)
+    record = _recorder(checks)
+    cfg, dit = C.derive_asa_config(C.WAN_14B_720P, "multilevel"), C.WAN_14B_720P.dit
+    h, d, length = dit.num_heads, dit.head_dim, cfg.seq_len
+    assert (h, d, length) == (40, 128, 75600)
+    q, k, v = (torch.randn((1, h, length, d), generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    levels = asa.compute_mask(q, k, cfg, generator=make_generator(19, dev))
+    lists_ms = _cuda_ms(torch, lambda: levels_to_lists(levels), 5)
+    carry_ms, lane_ms = _cuda_ms_turns(
+        torch, [lambda: multilevel_attention(q, k, v, levels),
+                lambda: multilevel_attention(q, k, v, levels, fused=False)], 3)
+    err, ref = _carry_vs_per_level(torch, q, k, v, levels)
+    idx, cnt = levels_to_lists(levels)
+    records = pack_kv_pyramid(k.reshape(h, length, d), v.reshape(h, length, d))
+    scale, sub = 1.0 / math.sqrt(d), 4
+    pairs = _multilevel_pairs(idx, cnt, length, length, 128)
+    _attn_check(torch, record, "multilevel_fwd",
+                f"14b level carry q [1,{h},{length},{d}] cap {idx.shape[-1]} key share "
+                f"{pairs / (h * float(length) ** 2):.4f} (plain: {sub} heads)",
+                lambda: multilevel_from_records(q, records, idx, cnt, length, 128, scale),
+                lambda: multilevel_lists_attention(
+                    q[:, :sub], k[:, :sub], v[:, :sub], (idx[:, :sub], cnt[:, :sub]),
+                    q_rows=128, scale=scale),
+                10, 1, False, 4.0 * d * pairs, _nbytes(q, *records, idx, cnt), heads=sub)
+    res = dict(carry_ms=carry_ms, per_level_ms=lane_ms, lists_ms=lists_ms,
+               carry_vs_per_level_err=err, max_abs_out=ref)
+    print(f"wan14b level carry [1,{h},{length},{d}] (whole: lists, pyramid pack, #11) vs "
+          f"per-level lane whole (fused=False: #3, #2, pyramid, #9/#10 x3, f32 merge), in "
+          f"turns: " + json.dumps(res))
+    return res
+
+
 def serve_wan14b(torch, dev):
     """Phase 13: one full-width, full-depth Wan2.1-T2V-14B 720p request on
-    the per-level multilevel lane after a warm-up DiT forward, then one
+    the level carry after a warm-up DiT forward, then one
     dense-attention forward of the same module (the same parameter
     storage)."""
     from blade_torch.cli.inference import build_pipeline, get_args, random_text_embeds
@@ -1455,9 +1530,8 @@ def serve_wan14b(torch, dev):
     results, launches, lat = _requests(torch, pipe, text, args.seed, args.steps,
                                        (1, 81, 720, 1280, 3), n=1)
     n = c.num_layers * args.steps
-    want = {"dense_fwd": 2 * n, "sparse_fwd": n, "pack_kv": n, "pack_kv_pyramid": n,
-            "norm_rope": 2 * n, "pooled_level_fwd": 3 * n, "heads_pack": 3 * n,
-            "heads_unpack": n}
+    want = {"dense_fwd": 2 * n, "multilevel_fwd": n, "pack_kv_pyramid": n,
+            "norm_rope": 2 * n, "heads_pack": 3 * n, "heads_unpack": n}
     for name, count in launches.items():
         assert count == want.get(name, 0), (name, count, want.get(name, 0))
 
@@ -1474,17 +1548,18 @@ def serve_wan14b(torch, dev):
     finally:
         pipe.dit.attention_fn = sparse_fn
     assert torch.isfinite(v).all()
-    print(f"wan14b dense-attention forward {dense_ms:.1f} ms; per-level multilevel step "
+    print(f"wan14b dense-attention forward {dense_ms:.1f} ms; level-carry step "
           f"{results[0]['step_ms']:.1f} ms")
     return results, launches, dense_ms, n_params
 
 
 def wan14b_reference_check(torch, dev):
-    """Phase 14, the twin of phases 5 and 11 on the per-level lane, and of
-    phase 7 for its gradient: a small Wan (2 layers of width 128, one head
-    of 128) over a 21 x 32 x 52 latent grid, 34 944 tokens in 273 key
-    blocks, so the lane choice itself picks the per-level lane; kernels
-    (bf16, card) against plain versions (f32, CPU) with shared weights and
+    """Phase 14, the twin of phases 5 and 11 past the fused lane's rule, and
+    of phase 7 for its gradient: a small Wan (2 layers of width 128, one
+    head of 128) over a 21 x 32 x 52 latent grid, 34 944 tokens in 273 key
+    blocks, so the lane choice itself picks the level carry on the card and
+    the per-level lane on the CPU; kernels (bf16, card) against plain
+    versions (f32, CPU) with shared weights and
     adapters and the card's int level masks replayed: the velocity and the
     LoRA gradients of one loss, from one forward and backward each."""
     from blade_torch.attention.asa import ASAConfig
@@ -2069,10 +2144,11 @@ def check_cog_multilevel_backward(torch, dev, checks, gen=None):
 
 def check_wan14b_multilevel_backward(torch, dev, checks, gen=None):
     """Phase 20: the pooled backward kernels and the per-level lane's
-    gradient at Wan2.1-14B 720p shapes (H=40, d=128, L=75600, a 128-row level
-    mask from the real predictor; p from each level's own lse).  No library
-    call: a level's token mask would take 229 / 114 / 57 GB beside the
-    rest."""
+    gradient (``fused=False``) at Wan2.1-14B 720p shapes (H=40, d=128,
+    L=75600, a 128-row level mask from the real predictor; p from each
+    level's own lse), then the level carry's output against the per-level
+    lane's and its gradient on the same mask.  No library call: a level's
+    token mask would take 229 / 114 / 57 GB beside the rest."""
     from blade_torch import config as C
     from blade_torch.attention import asa
     from blade_torch.kernels.multilevel_attn import levels_to_lists, pooled_level_from_records
@@ -2109,15 +2185,22 @@ def check_wan14b_multilevel_backward(torch, dev, checks, gen=None):
                           out_l, lse_l, g_out, g_lse, delta, mask, level, length, 8, 5, False)
         del out_l, lse_l, delta
     del records
+    plain_lists = levels_to_lists(levels[:, :2])
     lanes["wan14b_per_level"] = _lane_gradient(
-        torch, f"wan14b per-level [1,{h},{length},{d}]", q, k, v, dict(levels=levels),
-        levels_to_lists(levels[:, :2]), 128, 2, 8, gen)
+        torch, f"wan14b per-level [1,{h},{length},{d}]", q, k, v,
+        dict(levels=levels, fused=False), plain_lists, 128, 2, 8, gen)
+    err, ref = _carry_vs_per_level(torch, q, k, v, levels)
+    print(f"wan14b level carry vs per-level lane: max_abs_err {err:.3e} (max |out| {ref:.3e}, "
+          f"tol 2^-6 of it)")
+    lanes["wan14b_carry"] = _lane_gradient(
+        torch, f"wan14b level carry [1,{h},{length},{d}]", q, k, v, dict(levels=levels),
+        plain_lists, 128, 2, 8, gen)
     return lanes
 
 
 def multilevel_gradient_check(torch, dev):
     """Phase 21, the multilevel twin of phase 7 on the fused lane (phase 14
-    holds the per-level lane's gradient): LoRA gradients of one loss through
+    holds the gradient past the fused rule): LoRA gradients of one loss through
     the 2-layer CogVideoX of phase 11 (256-row lists), kernels (bf16, card)
     against plain versions (f32, CPU), shared weights and adapters, the
     card's lists replayed."""
@@ -2430,6 +2513,9 @@ def main():
     lane_ms, dense_attn_ms = check_wan14b_pooled(torch, dev, checks)
     gc.collect()
     torch.cuda.empty_cache()
+    carry = check_wan14b_carry(torch, dev, checks)
+    gc.collect()
+    torch.cuda.empty_cache()
     w14_results, w14_launches, w14_dense_ms, w14_params = serve_wan14b(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2482,6 +2568,8 @@ def main():
         wan14b_denoise_peak_gib=w14["denoise_peak_gib"],
         wan14b_decode_peak_gib=w14["decode_peak_gib"], wan14b_params_b=w14_params / 1e9,
         wan14b_attention_lane_ms=lane_ms, wan14b_attention_dense_ms=dense_attn_ms,
+        wan14b_carry_ms=carry["carry_ms"], wan14b_per_level_ms=carry["per_level_ms"],
+        wan14b_lists_ms=carry["lists_ms"],
         wan14b_reference_max_abs_err=w14_ref_err, wan14b_gradient_max_abs_err=w14_grad_err,
         maxpred_step_ms=max_results[1]["step_ms"], maxpred_clip_s=max_results[1]["clip_s"],
         maxpred_denoise_s=max_results[1]["denoise_s"],
@@ -2494,6 +2582,8 @@ def main():
         cog_lane_bwd_ms=lanes["cog_fused"]["bwd_ms"],
         wan14b_lane_fwd_ms=lanes["wan14b_per_level"]["fwd_ms"],
         wan14b_lane_bwd_ms=lanes["wan14b_per_level"]["bwd_ms"],
+        wan14b_carry_fwd_ms=lanes["wan14b_carry"]["fwd_ms"],
+        wan14b_carry_bwd_ms=lanes["wan14b_carry"]["bwd_ms"],
         cog_gradient_max_abs_err=cog_grad_err,
         cog_multilevel_grad_s=cog_grad["grad_s"],
         cog_multilevel_grad_peak_mem_gib=cog_grad["peak_mem_gib"],

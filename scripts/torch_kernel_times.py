@@ -6,9 +6,11 @@ By default: the forward checks (phases 3, 9 and 15: the Wan2.1-1.3B 480p and
 CogVideoX-5B 480p main-path shapes, the "max" predictor, union-gathered
 sparse and head-relayout kernels; phase 12 at Wan2.1-14B 720p: the dense
 kernel as its predictor, the three pooled levels and the sparse kernel on
-the level-1 lists; the dense kernel as the CogVideoX pooled branch of phase
-18; CogVideoX's q/k lane and its input gradient, ``check_cog_qk``) and the
-backward checks (``check_backward``, phase 6: the dense and
+the level-1 lists; ``check_wan14b_carry``: the multi-level kernel over the
+14B level mask's four lists, the list building alone, and the level carry
+whole in turns with the per-level lane whole; the dense kernel as the
+CogVideoX pooled branch of phase 18; CogVideoX's q/k lane and its input
+gradient, ``check_cog_qk``) and the backward checks (``check_backward``, phase 6: the dense and
 sparse backward kernels and the delta kernel at Wan 480p, and the whole
 sparse backward as the port runs it; ``check_cog_energy``, phase 18: the
 same at CogVideoX d = 64, with its sparse forward and ``pack_kv``) and
@@ -57,7 +59,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     dev, checks = torch.device("cuda"), {}
     names = sys.argv[1:] or ["check_kernels", "check_dense_d64", "check_wan14b_pooled",
-                             "check_cog_pooled_fwd", "check_cog_multilevel", "check_cog_qk",
+                             "check_wan14b_carry", "check_cog_pooled_fwd",
+                             "check_cog_multilevel", "check_cog_qk",
                              "check_last_kernels", "check_backward", "check_cog_energy",
                              "check_wan_cross_attn"]
     for name in names:

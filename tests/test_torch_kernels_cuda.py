@@ -20,6 +20,10 @@ backward: p and ds are rounded to bf16 before each product (relative
 to 1e-5 of each row's sum of |dO * O| (f32 sums in another order).  Wan's
 text cross-attention on those kernels is held to the same 2e-2 of the
 largest value, output and gradients, against the f32 expression it replaced.
+The level carry (a level mask past the fused lane's rule in one #11 carry)
+is held to the fused lane's tolerances against the plain function and to
+four bf16 ulps at the largest output against the per-level lane, which
+rounds each level's output before its merge.
 """
 
 import math
@@ -40,6 +44,7 @@ from blade_torch.kernels.block_sparse_attn import (
 )
 from blade_torch.attention.masks import multilevel_lists, multilevel_mask
 from blade_torch.kernels.multilevel_attn import (
+    fused_supported,
     levels_to_lists,
     multilevel_attention,
     pooled_level_attention,
@@ -61,6 +66,7 @@ from blade_torch.kernels.ref_attention import (
     pooled_level_attention_reference,
     pooled_level_backward_reference,
 )
+from blade_torch.utils import tracing
 
 pytestmark = pytest.mark.cuda
 
@@ -329,6 +335,81 @@ def test_per_level_lane_matches_plain(dev):
     assert _err(out.cpu(), ref_out) <= OUT_TOL
     assert _err(lse.cpu(), ref_lse) <= LSE_TOL
     assert out[0, 1, 384:512].abs().max().item() == 0.0
+
+
+# Past the fused lane's rule (258 key blocks), a 128-row level mask on the
+# card takes the level carry: its four lists in one #11 carry.
+CARRY_LK = 257 * 128 + 37
+CARRY_FWD = ("multilevel_fwd", "pack_kv_pyramid", "sparse_fwd", "pack_kv", "pooled_level_fwd")
+
+
+def _carry_inputs(dev, d):
+    gen = torch.Generator(device=dev).manual_seed(CARRY_LK + d)
+    q, k, v = (_rand(gen, 1, 2, CARRY_LK, d, dev=dev) for _ in range(3))
+    n = -(-CARRY_LK // 128)
+    levels = multilevel_mask(torch.rand((1, 2, n, n), generator=gen, device=dev), ML_RATIOS)
+    assert not fused_supported(d, CARRY_LK)
+    return gen, q, k, v, levels
+
+
+@pytest.mark.parametrize("d", [128, 64])
+def test_level_carry_matches_plain_past_the_fused_rule(dev, d):
+    """``multilevel_attention(q, k, v, levels)`` past 256 key blocks: one
+    pyramid pack and one #11 launch, none of the per-level lane's; out and
+    lse within the fused lane's tolerances of the plain f32 function over
+    the mask's lists, and within bf16 rounding of ``fused=False`` (four
+    ulps at its largest output: one rounding against four merged ones);
+    one ``asa.level_carry_calls`` under a profiler, no per-level call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, q, k, v, levels = _carry_inputs(dev, d)
+    before = [_build.KERNELS[n].launches for n in CARRY_FWD]
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out, lse = multilevel_attention(q, k, v, levels)
+        torch.cuda.synchronize()
+    got = tracing.counters()
+    tracing.reset()
+    assert [_build.KERNELS[n].launches - b for n, b in zip(CARRY_FWD, before)] == [1, 1, 0, 0, 0]
+    assert got.get("asa.level_carry_calls") == 1 and "asa.per_level_calls" not in got
+    ref_out, ref_lse = multilevel_lists_attention(q, k, v, levels_to_lists(levels), q_rows=128)
+    assert torch.isfinite(out.float()).all()
+    assert _err(out, ref_out) <= OUT_TOL
+    assert _err(lse, ref_lse) <= LSE_TOL
+    lane_out, lane_lse = multilevel_attention(q, k, v, levels, fused=False)
+    assert _err(out, lane_out) <= 2 ** -6 * lane_out.float().abs().max().item()
+    assert _err(lse, lane_lse) <= LSE_TOL
+
+
+@pytest.mark.parametrize("d", [128, 64])
+def test_level_carry_backward_matches_plain(dev, d):
+    """dQ, dK, dV through the level carry (the fused lane's backward against
+    the one merged ``(out, lse)``) against torch autograd of the plain f32
+    function on the same bf16 inputs, 16 mask rows at a time (the loss sums
+    over query rows, so the chunks' gradients add up), with exact backward
+    launch counts."""
+    gen, q, k, v, levels = _carry_inputs(dev, d)
+    g_out = _rand(gen, 1, 2, CARRY_LK, d, dev=dev)
+    g_lse = torch.randn((1, 2, CARRY_LK), generator=gen, device=dev)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    names = ("pack_kv", "sparse_dq", "sparse_dkv", "pooled_level_dq", "pooled_level_dkv",
+             "attn_delta")
+    before = [_build.KERNELS[n].launches for n in names]
+    out, lse = multilevel_attention(*leaves, levels)
+    got = torch.autograd.grad((out, lse), leaves, (g_out, g_lse))
+    torch.cuda.synchronize()
+    assert [_build.KERNELS[n].launches - b for n, b in zip(names, before)] == [0, 1, 1, 3, 3, 1]
+    idx, cnt = levels_to_lists(levels)
+    plain = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    qf, kf, vf = plain
+    for m0 in range(0, idx.shape[2], 16):
+        r0, r1 = m0 * 128, min(CARRY_LK, (m0 + 16) * 128)
+        o, s = multilevel_lists_attention(
+            qf[:, :, r0:r1], kf, vf, (idx[:, :, m0:m0 + 16], cnt[:, :, m0:m0 + 16]), q_rows=128)
+        torch.autograd.backward((o, s), (g_out[:, :, r0:r1].float(), g_lse[:, :, r0:r1]))
+    for g, w in zip(got, (t.grad for t in plain)):
+        assert torch.isfinite(g.float()).all()
+        assert _err(g, w) <= BWD_REL * w.abs().max().item()
 
 
 @pytest.mark.parametrize("level,lq,lk,d", [

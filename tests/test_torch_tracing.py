@@ -18,6 +18,10 @@
 * Wan's text cross-attention counts ``dit.cross_attn.calls`` once a layer a
   forward (CogVideoX, which has none, counts nothing of it); remat's
   recomputation counts ``dit.cross_attn.recomputed_calls`` alone.
+* Past the fused lane's rule an int level mask takes the per-level lane on
+  the CPU (the level carry is the card's); the carry itself opens
+  ``asa.level_lists`` and counts ``asa.level_carry_calls``, not where
+  recomputed.
 """
 
 import dataclasses
@@ -267,6 +271,64 @@ def test_a_per_level_call_with_tracing_off_counts_nothing(monkeypatch):
     monkeypatch.setattr(torch.profiler, "record_function", refuse)
     _asa_call("per_level", monkeypatch)
     assert tracing.counters() == {}
+
+
+# -- the level carry: an int level mask past the fused lane's rule ----------------
+
+def _past_the_rule():
+    """q [1, 1, 256, 64] against 32,933 keys (258 key blocks, past the
+    fused lane's 256) and a 128-row level mask over them."""
+    from blade_torch.attention.masks import multilevel_mask
+    from blade_torch.kernels.multilevel_attn import fused_supported
+
+    g = make_generator(7)
+    q = torch.randn((1, 1, 256, 64), generator=g)
+    k, v = (torch.randn((1, 1, 257 * 128 + 37, 64), generator=g) for _ in range(2))
+    assert not fused_supported(64, k.shape[2])
+    levels = multilevel_mask(torch.rand((1, 1, 2, 258), generator=g))
+    return q, k, v, levels
+
+
+def test_past_the_fused_rule_a_cpu_call_takes_the_per_level_lane(tmp_path):
+    """The level carry runs on the card alone: on the CPU the same call
+    opens the per-level lane's spans, counts its call and none of the
+    carry's, and gives ``fused=False``'s answer."""
+    from blade_torch.kernels.multilevel_attn import multilevel_attention
+
+    q, k, v, levels = _past_the_rule()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out, lse = multilevel_attention(q, k, v, levels)
+    names = [s[0] for s in _spans(prof, tmp_path)]
+    assert names.count("asa.levels") == names.count("asa.level_merge") == 1
+    assert "asa.level_lists" not in names
+    got = tracing.counters()
+    assert got["asa.per_level_calls"] == 1 and "asa.level_carry_calls" not in got
+    want = multilevel_attention(q, k, v, levels, fused=False)
+    assert torch.equal(out, want[0]) and torch.equal(lse, want[1])
+
+
+def test_the_level_carry_opens_its_span_and_counts_once(tmp_path):
+    """The carry itself, run here on its plain versions: one
+    ``asa.level_lists`` span, one ``asa.level_carry_calls``, nothing of the
+    per-level lane, nothing counted where recomputed, and the per-level
+    lane's answer (one f32 carry against four merged outputs)."""
+    from blade_torch.kernels.multilevel_attn import _level_carry, multilevel_attention
+
+    q, k, v, levels = _past_the_rule()
+    scale = 64 ** -0.5
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out, lse = _level_carry(q, k, v, levels, scale)
+        with tracing.recompute(True):
+            _level_carry(q, k, v, levels, scale)
+    names = [s[0] for s in _spans(prof, tmp_path)]
+    assert names.count("asa.level_lists") == 2
+    assert not {"asa.levels", "asa.level_merge"} & set(names)
+    assert tracing.counters() == {"asa.level_carry_calls": 1}
+    want_out, want_lse = multilevel_attention(q, k, v, levels, fused=False)
+    torch.testing.assert_close(out, want_out, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+    with pytest.raises(ValueError, match="128-row level mask"):
+        _level_carry(q, k, v, levels[..., :1, :], scale)
 
 
 # -- Wan's text cross-attention counters --------------------------------------
