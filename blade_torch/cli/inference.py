@@ -1,9 +1,13 @@
-"""Text-to-video inference CLI, Wan and CogVideoX (counterpart of
-``blade/cli/inference.py``).
+"""Video inference CLI: text to video (Wan, CogVideoX) and image to video
+(Wan2.1-I2V) (counterpart of ``blade/cli/inference.py``).
 
-The text encoder and checkpoint loading are not ported yet, so the CLI runs
-random weights (``--random-init``) with random text embeddings drawn per
-prompt from a seed derived from the prompt text.
+The text and image encoders and checkpoint loading are not ported yet, so
+the CLI runs random weights (``--random-init``) with random text embeddings
+drawn per prompt from a seed derived from the prompt text.  An
+image-to-video preset reads its first frame from ``--image`` (a PNG,
+resized to the preset's size where it differs) or, with none,
+draws it from ``--seed``; its CLIP image features are always drawn from
+``--seed``.
 
 Examples:
   python -m blade_torch.cli.inference --preset wan-1.3b-480p --random-init \\
@@ -12,6 +16,8 @@ Examples:
       --prompt "a cat surfing" --steps 8 --output_dir outputs/
   python -m blade_torch.cli.inference --preset wan-14b-720p --mask_mode multilevel \\
       --random-init --prompt "a cat surfing" --steps 8 --output_dir outputs/
+  python -m blade_torch.cli.inference --preset wan-i2v-14b-480p --random-init \\
+      --image first_frame.png --prompt "a cat surfing" --steps 8 --output_dir outputs/
   python -m blade_torch.cli.inference --family cogvideox --tiny --random-init \\
       --device cpu --prompt "a cat surfing" --steps 2
 
@@ -55,7 +61,11 @@ def get_args(argv=None):
     p.add_argument("--tiny", action="store_true", help="tiny CPU preset")
     p.add_argument("--preset", type=str, default=None,
                    help="named preset (overrides --family/--tiny): wan-1.3b-480p, "
-                        "wan-14b-720p, cogvideox-5b-480p, wan-tiny, cogvideox-tiny")
+                        "wan-14b-720p, wan-i2v-14b-480p, cogvideox-5b-480p, wan-tiny, "
+                        "wan-i2v-tiny, cogvideox-tiny")
+    p.add_argument("--image", type=str, default=None, metavar="PATH",
+                   help="first frame of an image-to-video preset (PNG); "
+                        "default: drawn from --seed")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda)")
     p.add_argument("--profile", type=str, default=None, metavar="PATH",
@@ -97,6 +107,31 @@ def random_text_embeds(pipe, prompt: str) -> torch.Tensor:
     return torch.from_numpy(e).to(pipe.device, pipe.dtype)
 
 
+def image_inputs(pipe, path, seed: int):
+    """An image-to-video preset's first frame ``[1, 3, H, W]`` in [-1, 1]
+    (``path`` read and resized bicubically to the preset's size where it
+    differs, or, with no path, uniform draws from ``seed``) and its CLIP
+    image features ``[1, image_context_tokens, image_dim]`` drawn from
+    ``seed`` (stand-ins for the image encoder), on the pipeline's device."""
+    from blade_torch.utils.rng import fold_generator, make_generator
+    from blade_torch.utils.video_io import read_image
+
+    p, dev = pipe.preset, pipe.device
+    h, w = p.video.height, p.video.width
+    g = make_generator(seed, dev)
+    if path is None:
+        image = torch.rand((1, 3, h, w), generator=g, device=dev) * 2.0 - 1.0
+    else:
+        u8 = torch.from_numpy(read_image(path)).to(dev)
+        image = u8.permute(2, 0, 1)[None].float() / 127.5 - 1.0
+        if image.shape[2:] != (h, w):
+            image = torch.nn.functional.interpolate(image, size=(h, w), mode="bicubic",
+                                                    align_corners=False).clamp(-1.0, 1.0)
+    embeds = torch.randn((1, p.dit.image_context_tokens, p.dit.image_dim),
+                         generator=fold_generator(g, 1), device=dev)
+    return image, embeds.to(pipe.dtype)
+
+
 def main(argv=None):
     from blade_torch.utils.rng import make_generator
     from blade_torch.utils.tracing import profile_to
@@ -115,10 +150,14 @@ def main(argv=None):
     with profile_to(args.profile):
         for i, prompt in enumerate(prompts):
             try:
+                image = {}
+                if pipe.preset.family.condition is not None:
+                    image = dict(zip(("image", "image_embeds"),
+                                     image_inputs(pipe, args.image, args.seed + i)))
                 frames = pipe.generate(
                     random_text_embeds(pipe, prompt),
                     generator=make_generator(args.seed + i, pipe.device),
-                    num_steps=args.steps, mask_refresh_every=args.mask_refresh_every)
+                    num_steps=args.steps, mask_refresh_every=args.mask_refresh_every, **image)
                 path = os.path.join(args.output_dir, f"video_{i:04d}.mp4")
                 out = export_video(pipe.frames_to_uint8(frames[0]).cpu().numpy(), path,
                                    fps=pipe.preset.video.fps)

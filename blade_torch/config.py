@@ -7,16 +7,21 @@ presets decode with their family's tiny VAE (``WAN21_VAE_TINY``,
 ``COGVIDEOX_VAE_TINY``); the JAX tiny presets use the generic tiny VAE,
 which is not part of the port.
 
-What differs between the two model families -- their modules, serving lane,
-latent layout, VAE decode, sampler, training diffusion and TDM guards -- is
-decided in one place: the :class:`Family` record ``FAMILIES[preset.name]``
-(``preset.family``).
+What differs between the model families -- their modules, serving lane,
+latent layout, VAE decode, the conditioning the DiT reads beside the
+latents, sampler, training diffusion and TDM guards -- is decided in one
+place: the :class:`Family` record ``FAMILIES[preset.name]``
+(``preset.family``).  Wan2.1 image-to-video (``"wan-i2v"``) is Wan's record
+with the VAE's encoder, the image conditioning and its own presets.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, Optional, Tuple, Union
+
+import torch
 
 from blade_torch.attention.asa import ASAConfig
 from blade_torch.models.cogvideox_dit import (
@@ -39,16 +44,25 @@ from blade_torch.models.vae_wan import (
     WanVAE,
     WanVAEConfig,
     streaming_decode,
+    streaming_encode,
 )
-from blade_torch.models.wan_dit import WAN_1_3B, WAN_14B, WAN_TINY, WanConfig, WanModel
+from blade_torch.models.wan_dit import (
+    WAN_1_3B,
+    WAN_14B,
+    WAN_I2V_14B,
+    WAN_I2V_TINY,
+    WAN_TINY,
+    WanConfig,
+    WanModel,
+)
 from blade_torch.sampling.pipeline import SDEDPM, FlowUniPC
 from blade_torch.schedulers.ddpm import make_ddpm_schedule
 from blade_torch.schedulers.unipc_flow import flow_training_sigmas
 from blade_torch.training import tdm
 
 __all__ = ["VideoSpec", "FamilyPreset", "Family", "FAMILIES", "WAN_480P", "WAN_14B_720P",
-           "WAN_TINY_PRESET", "COGVIDEOX_480P", "COGVIDEOX_TINY_PRESET", "PRESETS",
-           "derive_asa_config"]
+           "WAN_TINY_PRESET", "WAN_I2V_480P", "WAN_I2V_TINY_PRESET", "COGVIDEOX_480P",
+           "COGVIDEOX_TINY_PRESET", "PRESETS", "derive_asa_config"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,7 +75,7 @@ class VideoSpec:
 
 @dataclasses.dataclass(frozen=True)
 class FamilyPreset:
-    name: str  # "wan" | "cogvideox"
+    name: str  # "wan" | "wan-i2v" | "cogvideox"
     dit: Union[WanConfig, CogVideoXConfig]
     vae: Union[WanVAEConfig, CogVideoXVAEConfig]
     text_dim: int  # width of the text encoder's output (UMT5-XXL, T5-XXL: 4096)
@@ -136,6 +150,10 @@ COGVIDEOX_480P = FamilyPreset(
     sample_gap=15, max_retain_ratio=0.1, joint_text_attention=True,
     asa_multilevel_q_rows=256,
 )
+# Wan2.1-I2V-14B at its 480P checkpoint's size: 81 frames of 480x832 ->
+# 21x30x52 latents = 32 760 tokens on the energy lane as WAN_480P sets it;
+# the DiT reads 36 channels and 257 CLIP image tokens.
+WAN_I2V_480P = dataclasses.replace(WAN_480P, name="wan-i2v", dit=WAN_I2V_14B)
 # CPU-testable end-to-end presets.
 WAN_TINY_PRESET = FamilyPreset(
     name="wan", dit=WAN_TINY, vae=WAN21_VAE_TINY, text_dim=WAN_TINY.text_dim,
@@ -149,10 +167,14 @@ COGVIDEOX_TINY_PRESET = FamilyPreset(
     min_retain_ratio=0.25, joint_text_attention=True,
 )
 
+WAN_I2V_TINY_PRESET = dataclasses.replace(WAN_TINY_PRESET, name="wan-i2v", dit=WAN_I2V_TINY)
+
 PRESETS = {
     "wan-1.3b-480p": WAN_480P,
     "wan-14b-720p": WAN_14B_720P,
+    "wan-i2v-14b-480p": WAN_I2V_480P,
     "wan-tiny": WAN_TINY_PRESET,
+    "wan-i2v-tiny": WAN_I2V_TINY_PRESET,
     "cogvideox-5b-480p": COGVIDEOX_480P,
     "cogvideox-tiny": COGVIDEOX_TINY_PRESET,
 }
@@ -164,7 +186,7 @@ class Family:
     :data:`FAMILIES`.  Adding a family means adding a record."""
 
     dit_class: type  # WanModel | CogVideoXModel
-    vae_class: type  # WanVAE | CogVideoXVAE
+    vae_class: Callable  # WanVAE (with its encoder for "wan-i2v") | CogVideoXVAE
     mask_mode: str  # the reference's serving lane
     patch: Callable  # DiT config -> (pt, ph, pw), its patch in latent pixels
     # of the model-layout latents: Wan [B, C, T, H, W], CogVideoX [B, T, C, H, W]
@@ -176,13 +198,17 @@ class Family:
     fake_loss_skip_threshold: Optional[float]  # TDM's fake-loss guard
     full: FamilyPreset  # the presets ``--family`` names, without and with ``--tiny``
     tiny: FamilyPreset
+    # (vae, preset, image [B, 3, H, W] in [-1, 1]) -> the model-layout
+    # channels the DiT reads beside the latents at every step; None: the
+    # family generates from text alone.
+    condition: Optional[Callable] = None
 
     def latent_shape(self, preset: FamilyPreset, batch: int) -> Tuple[int, ...]:
         """Model-layout latents of ``batch`` clips."""
         pt, ph, pw = self.patch(preset.dit)
         t, h, w = preset.latent_grid()
         shape = [t * pt, h * ph, w * pw]
-        shape.insert(self.channel_axis - 1, preset.dit.in_channels)
+        shape.insert(self.channel_axis - 1, preset.dit.out_channels)
         return (batch, *shape)
 
     def to_bthwc(self, latents):
@@ -213,6 +239,23 @@ def _cogvideox_decode(vae, z):
                         spatial_factor=vae.cfg.spatial_factor)
 
 
+def _wan_i2v_condition(vae, preset: FamilyPreset, image):
+    """Wan2.1-I2V's conditioning ``[B, 4 + z, T', H', W']``: the image as
+    frame 0 of a clip of ``num_frames`` (the rest zeros) through the
+    streaming encode, normalised by the latent statistics, behind a mask
+    that is one on the first latent frame (the image's) and zero on the
+    rest, of the channels the DiT reads past the latents and the encoding
+    (Wan2.1: 4, its VAE's temporal factor)."""
+    b, _, h, w = image.shape
+    video = image.float()[:, None].permute(0, 1, 3, 4, 2)  # [B, 1, H, W, 3]
+    video = torch.cat([video, video.new_zeros((b, preset.video.num_frames - 1, h, w, 3))], 1)
+    cond = vae.normalize(streaming_encode(vae, video)).permute(0, 4, 1, 2, 3)
+    width = preset.dit.in_channels - preset.dit.out_channels - cond.shape[1]
+    mask = torch.zeros((b, width) + cond.shape[2:], device=cond.device, dtype=cond.dtype)
+    mask[:, :, 0] = 1.0
+    return torch.cat([mask, cond], dim=1)
+
+
 def _ddpm_schedule(preset: FamilyPreset):
     return make_ddpm_schedule(snr_shift_scale=preset.snr_shift_scale,
                               rescale_betas_zero_snr=preset.rescale_betas_zero_snr)
@@ -239,3 +282,7 @@ FAMILIES = {
         use_weighting_factor=True, fake_loss_skip_threshold=None,
         full=COGVIDEOX_480P, tiny=COGVIDEOX_TINY_PRESET),
 }
+# Wan's record with the VAE's encoder and the image conditioning.
+FAMILIES["wan-i2v"] = dataclasses.replace(
+    FAMILIES["wan"], vae_class=functools.partial(WanVAE, encoder=True),
+    condition=_wan_i2v_condition, full=WAN_I2V_480P, tiny=WAN_I2V_TINY_PRESET)

@@ -6,9 +6,13 @@ dicts (diffusers key layout), with numpy only.
   ``kernel [in, out]`` -> torch ``weight [out, in]``, conv kernels
   ``[*k, in, out]`` -> ``[out, in, *k]``, the ``nn.scan`` layer axis split
   into ``blocks.{i}``.
+  An I2V tree (``image_dim`` set) also gives the image embedder
+  (``condition_embedder.image_embedder.*``) and each block's image branch
+  (``attn2.add_k_proj``, ``add_v_proj``, ``norm_added_k``).
 * :func:`wan_vae_state_dict` follows
-  ``blade/convert/vae_convert.py::fake_torch_state_dict`` for the Wan VAE
-  (the decode half the port runs: ``decoder.*`` and ``post_quant_conv.*``).
+  ``blade/convert/vae_convert.py::fake_torch_state_dict`` for the Wan VAE:
+  the decode half (``decoder.*`` and ``post_quant_conv.*``) and, where the
+  tree has them, the encode half (``encoder.*`` and ``quant_conv.*``).
 
 * :func:`cogvideox_transformer_state_dict` inverts
   ``convert_cogvideox_transformer`` (diffusers
@@ -76,6 +80,12 @@ def wan_transformer_state_dict(params: Mapping, num_layers: int) -> Dict[str, np
     _lin(sd, f"{ce}.time_embedder.linear_1", p["time_embed"]["Dense_0"])
     _lin(sd, f"{ce}.time_embedder.linear_2", p["time_embed"]["Dense_1"])
     _lin(sd, f"{ce}.time_proj", p["time_projection"])
+    if "img_norm1" in p:
+        ie = f"{ce}.image_embedder"
+        _norm(sd, f"{ie}.norm1", p["img_norm1"])
+        _lin(sd, f"{ie}.ff.net.0.proj", p["img_ff_1"])
+        _lin(sd, f"{ie}.ff.net.2", p["img_ff_2"])
+        _norm(sd, f"{ie}.norm2", p["img_norm2"])
     head = np.asarray(p["head_modulation"], np.float32)
     sd["scale_shift_table"] = head.reshape(1, 2, head.shape[-1])
     _lin(sd, "proj_out", p["proj_out"])
@@ -89,6 +99,10 @@ def wan_transformer_state_dict(params: Mapping, num_layers: int) -> Dict[str, np
             _lin(sd, f"{b}.{attn}.to_out.0", lp[attn]["to_out"])
             _norm(sd, f"{b}.{attn}.norm_q", lp[attn]["norm_q"])
             _norm(sd, f"{b}.{attn}.norm_k", lp[attn]["norm_k"])
+        if "add_k_proj" in lp["attn2"]:
+            for proj in ("add_k_proj", "add_v_proj"):
+                _lin(sd, f"{b}.attn2.{proj}", lp["attn2"][proj])
+            _norm(sd, f"{b}.attn2.norm_added_k", lp["attn2"]["norm_added_k"])
         _norm(sd, f"{b}.norm2", lp["norm3"])
         _lin(sd, f"{b}.ffn.net.0.proj", lp["ffn"]["Dense_0"])
         _lin(sd, f"{b}.ffn.net.2", lp["ffn"]["Dense_1"])
@@ -210,12 +224,11 @@ def _torch_conv(kernel: np.ndarray) -> np.ndarray:
 
 
 def wan_vae_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
-    """flax ``WanVAE`` params -> ``AutoencoderKLWan`` keys of the decode half
-    (``decoder.*``, ``post_quant_conv.*``); encoder keys are dropped."""
+    """flax ``WanVAE`` params -> ``AutoencoderKLWan`` keys (``decoder.*``,
+    ``post_quant_conv.*``, and ``encoder.*``, ``quant_conv.*`` where the
+    tree has the encoder)."""
     sd: Dict[str, np.ndarray] = {}
     for path, value in _flatten(_tree(params)):
-        if path[0] not in ("decoder", "post_quant_conv"):
-            continue
         value = np.asarray(value, np.float32)
         segs = [_split_index(s) for s in path]
         leaf, parent = segs[-1], segs[-2] if len(segs) > 1 else ""

@@ -159,26 +159,30 @@ class PermutedLayerNorm(nn.LayerNorm):
 
 
 class _GeluProj(nn.Module):
-    """diffusers ``GELU(approximate='tanh')`` activation block: ``proj``."""
+    """diffusers ``GELU`` activation block (``approximate`` 'tanh' or
+    'none'): ``proj``."""
 
-    def __init__(self, dim, inner, compute_dtype, device=None):
+    def __init__(self, dim, inner, compute_dtype, device=None, approximate="tanh"):
         super().__init__()
         self.proj = Linear(dim, inner, compute_dtype=compute_dtype, device=device)
+        self.approximate = approximate
 
     def forward(self, x):
-        return F.gelu(self.proj(x), approximate="tanh")
+        return F.gelu(self.proj(x), approximate=self.approximate)
 
 
 class FeedForward(nn.Module):
-    """GELU(tanh) MLP; keys ``net.0.proj`` and ``net.2`` (diffusers)."""
+    """GELU(tanh) MLP (exact GELU with ``approximate="none"``) from ``dim``
+    to ``out_dim`` (default ``dim``); keys ``net.0.proj`` and ``net.2``
+    (diffusers)."""
 
     def __init__(self, dim: int, inner_dim: int, *, compute_dtype=torch.bfloat16,
-                 device=None):
+                 device=None, out_dim: Optional[int] = None, approximate: str = "tanh"):
         super().__init__()
         self.net = nn.ModuleList([
-            _GeluProj(dim, inner_dim, compute_dtype, device),
+            _GeluProj(dim, inner_dim, compute_dtype, device, approximate),
             nn.Identity(),
-            Linear(inner_dim, dim, compute_dtype=compute_dtype, device=device),
+            Linear(inner_dim, out_dim or dim, compute_dtype=compute_dtype, device=device),
         ])
 
     def forward(self, x):

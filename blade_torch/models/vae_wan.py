@@ -1,18 +1,24 @@
-"""Wan2.1 causal video VAE, decoder half, with streaming decode (PyTorch).
+"""Wan2.1 causal video VAE with streaming decode and encode (PyTorch).
 
 Counterpart of ``blade/models/vae_wan.py`` (``AutoencoderKLWan`` parity):
 RMS channel norms, zero-padded causal temporal convs, channel-halving
 upsample convs and the learned 2x temporal upsample whose first frame
-bypasses the time conv.  Parameter names follow the diffusers state dict
-(``decoder.*``, ``post_quant_conv.*``).  The encoder is not ported yet.
+bypasses the time conv; in the encoder, stride-2 spatial downsample convs
+(zero-padded right and bottom) and the learned stride-2 temporal downsample
+whose first frame passes through.  Parameter names follow the diffusers
+state dict (``decoder.*``, ``post_quant_conv.*``; with ``encoder=True``
+also ``encoder.*`` and ``quant_conv.*``, the original's ``conv1``).
 
 Public functions keep the JAX package's ``[B, T, H, W, C]`` layout; inside,
 tensors are ``[B, C, T, H, W]`` for ``torch.nn.functional.conv3d``.  The
-decode runs in f32, as the reference runs the Wan VAE.
+VAE runs in f32, as the reference runs the Wan VAE.
 
 Streaming: every temporal conv takes and returns a cache of its last
-``k_t - 1`` input frames, so :func:`streaming_decode` decodes latent frame
-by latent frame with bounded memory and exactly the whole-clip result.
+``k_t - 1`` input frames (a temporal downsample, its last input frame), so
+:func:`streaming_decode` decodes latent frame by latent frame, and
+:func:`streaming_encode` encodes the first frame and then chunks of
+``temporal_factor`` frames (the published encode loop), with bounded memory
+and exactly the whole-clip result.
 """
 
 from __future__ import annotations
@@ -29,7 +35,8 @@ from blade_torch.models.layers import init_lecun_
 from blade_torch.utils import tracing
 
 __all__ = ["WanVAEConfig", "WanVAE", "WAN21_VAE", "WAN21_VAE_TINY",
-           "streaming_decode", "WAN21_LATENTS_MEAN", "WAN21_LATENTS_STD"]
+           "streaming_decode", "streaming_encode", "WAN21_LATENTS_MEAN",
+           "WAN21_LATENTS_STD"]
 
 # Published Wan2.1 per-channel latent statistics (vae/config.json of
 # Wan-AI/Wan2.1-T2V-1.3B-Diffusers; applied as z * std + mean before decode).
@@ -62,6 +69,10 @@ class WanVAEConfig:
     @property
     def temporal_factor(self) -> int:
         return 2 ** sum(self.temporal_downsample)
+
+    @property
+    def encoder_dims(self) -> Tuple[int, ...]:
+        return tuple(self.base_dim * m for m in (1,) + tuple(self.dim_mult))
 
     @property
     def decoder_dims(self) -> Tuple[int, ...]:
@@ -156,20 +167,34 @@ class WanAttentionBlock(nn.Module):
 
 
 class WanResample(nn.Module):
-    """``upsample2d`` / ``upsample3d`` stage.  upsample3d: learned time conv
-    (C -> 2C, interleaved to 2x frames; on a fresh stream the first frame
-    bypasses it), then nearest 2x spatial + channel-halving 3x3 conv."""
+    """``upsample2d`` / ``upsample3d`` / ``downsample2d`` / ``downsample3d``
+    stage.  upsample3d: learned time conv (C -> 2C, interleaved to 2x
+    frames; on a fresh stream the first frame bypasses it), then nearest 2x
+    spatial + channel-halving 3x3 conv.  downsample: zero pad right and
+    bottom + stride-2 3x3 conv; downsample3d then a stride-2 time conv
+    (kernel 3) whose windows start at frame 0, frame 0 passing through on a
+    fresh stream; its cache is the last input frame."""
 
     def __init__(self, dim: int, mode: str, device=None):
         super().__init__()
         self.mode = mode
-        self.resample = nn.ModuleList([
-            nn.Upsample(scale_factor=(2.0, 2.0), mode="nearest"),
-            nn.Conv2d(dim, dim // 2, 3, padding=1, device=device),
-        ])
-        self.time_conv = (WanCausalConv3d(dim, dim * 2, (3, 1, 1), pad_time=2,
-                                          device=device)
-                          if mode == "upsample3d" else None)
+        if mode.startswith("upsample"):
+            self.resample = nn.ModuleList([
+                nn.Upsample(scale_factor=(2.0, 2.0), mode="nearest"),
+                nn.Conv2d(dim, dim // 2, 3, padding=1, device=device),
+            ])
+        else:
+            self.resample = nn.ModuleList([
+                nn.ZeroPad2d((0, 1, 0, 1)),
+                nn.Conv2d(dim, dim, 3, stride=2, device=device),
+            ])
+        self.time_conv = None
+        if mode == "upsample3d":
+            self.time_conv = WanCausalConv3d(dim, dim * 2, (3, 1, 1), pad_time=2,
+                                             device=device)
+        elif mode == "downsample3d":
+            self.time_conv = WanCausalConv3d(dim, dim, (3, 1, 1), stride=(2, 1, 1),
+                                             pad_time=0, device=device)
 
     @staticmethod
     def _interleave(y):
@@ -197,7 +222,16 @@ class WanResample(nn.Module):
         b, c, t, h, w = x.shape
         y = x.permute(0, 2, 1, 3, 4).reshape(b * t, c, h, w)
         y = self.resample[1](self.resample[0](y))
-        return y.reshape(b, t, c // 2, 2 * h, 2 * w).permute(0, 2, 1, 3, 4), out
+        x = y.reshape(b, t, *y.shape[1:]).permute(0, 2, 1, 3, 4)
+        if self.mode == "downsample3d":
+            last = x[:, :, -1:].clone()
+            if "time_conv" not in cache:  # fresh: frame 0 passes through
+                y = self.time_conv(x)[0] if x.shape[2] >= 3 else x[:, :, :0]
+                x = torch.cat([x[:, :, :1], y], dim=2)
+            else:
+                x, _ = self.time_conv(torch.cat([cache["time_conv"].to(x.dtype), x], dim=2))
+            out["time_conv"] = last
+        return x, out
 
 
 class WanMidBlock(nn.Module):
@@ -213,6 +247,40 @@ class WanMidBlock(nn.Module):
         x, out["resnets_0"] = self.resnets[0](x, cache.get("resnets_0"))
         x = self.attentions[0](x)
         x, out["resnets_1"] = self.resnets[1](x, cache.get("resnets_1"))
+        return x, out
+
+
+class WanEncoder3d(nn.Module):
+    """diffusers ``WanEncoder3d``: ``conv_in``, a flat list ``down_blocks``
+    (``num_res_blocks`` residual blocks a stage, then its downsample),
+    ``mid_block``, ``norm_out``, ``conv_out`` to ``2 z_dim`` channels (mean
+    and log-variance)."""
+
+    def __init__(self, cfg: WanVAEConfig, device=None):
+        super().__init__()
+        c = cfg
+        dims = c.encoder_dims
+        self.conv_in = WanCausalConv3d(c.in_channels, dims[0], device=device)
+        downs = []
+        for i, (in_dim, out_dim) in enumerate(zip(dims[:-1], dims[1:])):
+            for j in range(c.num_res_blocks):
+                downs.append(WanResidualBlock(in_dim if j == 0 else out_dim, out_dim, device))
+            if i != len(c.dim_mult) - 1:
+                mode = "downsample3d" if c.temporal_downsample[i] else "downsample2d"
+                downs.append(WanResample(out_dim, mode, device))
+        self.down_blocks = nn.ModuleList(downs)
+        self.mid_block = WanMidBlock(dims[-1], device)
+        self.norm_out = WanRMSNorm(dims[-1], device=device)
+        self.conv_out = WanCausalConv3d(dims[-1], 2 * c.z_dim, device=device)
+
+    def forward(self, x, cache=None):
+        cache = cache or {}
+        out = {}
+        x, out["conv_in"] = self.conv_in(x, cache.get("conv_in"))
+        for i, blk in enumerate(self.down_blocks):
+            x, out[f"down_blocks_{i}"] = blk(x, cache.get(f"down_blocks_{i}"))
+        x, out["mid_block"] = self.mid_block(x, cache.get("mid_block"))
+        x, out["conv_out"] = self.conv_out(F.silu(self.norm_out(x)), cache.get("conv_out"))
         return x, out
 
 
@@ -268,14 +336,21 @@ class WanDecoder3d(nn.Module):
 
 
 class WanVAE(nn.Module):
-    """AutoencoderKLWan decode path: ``post_quant_conv`` + ``decoder``."""
+    """AutoencoderKLWan decode path: ``post_quant_conv`` + ``decoder``; with
+    ``encoder=True`` also its encode path, ``encoder`` + ``quant_conv``
+    (registered after the decode path, so the decoder's random draws are
+    the same either way)."""
 
-    def __init__(self, cfg: WanVAEConfig = WAN21_VAE, *, device=None):
+    def __init__(self, cfg: WanVAEConfig = WAN21_VAE, *, encoder: bool = False, device=None):
         super().__init__()
         self.cfg = cfg
         self.decoder = WanDecoder3d(cfg, device)
         self.post_quant_conv = WanCausalConv3d(cfg.z_dim, cfg.z_dim, (1, 1, 1),
                                                device=device)
+        if encoder:
+            self.encoder = WanEncoder3d(cfg, device)
+            self.quant_conv = WanCausalConv3d(2 * cfg.z_dim, 2 * cfg.z_dim, (1, 1, 1),
+                                              device=device)
 
     @torch.no_grad()
     def random_init_(self, generator: torch.Generator) -> "WanVAE":
@@ -297,6 +372,31 @@ class WanVAE(nn.Module):
         x, _ = self.decode_with_cache(z.permute(0, 4, 1, 2, 3))
         return x.permute(0, 2, 3, 4, 1)
 
+    def encode_with_cache(self, video, cache=None):
+        """Frame chunk ``[B, 3, T, H, W]`` + carried conv caches -> the
+        posterior mean ``[B, z, T', H', W']`` (raw, f32) and the new caches.
+        Frame 0 must be in the first chunk (``cache=None`` there)."""
+        cache = cache or {}
+        h, enc = self.encoder(video.float(), cache.get("encoder"))
+        moments, _ = self.quant_conv(h)
+        return moments[:, :self.cfg.z_dim], {"encoder": enc}
+
+    def encode(self, video):
+        """Whole clip ``[B, T, H, W, 3]`` -> the posterior mean ``[B, T', H',
+        W', z]`` (raw: the JAX package's ``WanVAE.encode`` with no rng)."""
+        mu, _ = self.encode_with_cache(video.permute(0, 4, 1, 2, 3))
+        return mu.permute(0, 2, 3, 4, 1)
+
+    def normalize(self, mu):
+        """``(mu - latents_mean) / latents_std`` over the last (channel)
+        axis, where the configuration has the statistics; else ``mu``."""
+        c = self.cfg
+        if c.latents_mean is None:
+            return mu
+        mean = torch.tensor(c.latents_mean, device=mu.device, dtype=mu.dtype)
+        std = torch.tensor(c.latents_std, device=mu.device, dtype=mu.dtype)
+        return (mu - mean) / std
+
 
 def streaming_decode(vae: WanVAE, z: torch.Tensor):
     """Memory-bounded decode of ``z [B, T, H, W, C]`` -> ``[B, T', H', W', 3]``:
@@ -307,5 +407,24 @@ def streaming_decode(vae: WanVAE, z: torch.Tensor):
     for start in range(zc.shape[2]):
         with tracing.span("decode.chunk"):
             piece, cache = vae.decode_with_cache(zc[:, :, start:start + 1], cache)
+            pieces.append(piece.permute(0, 2, 3, 4, 1))
+    return torch.cat(pieces, dim=1)
+
+
+def streaming_encode(vae: WanVAE, video: torch.Tensor):
+    """Memory-bounded encode of ``video [B, T, H, W, 3]`` (``T = 1 + k
+    temporal_factor``) -> the posterior mean ``[B, T', H', W', z]`` (raw):
+    frame 0, then chunks of ``temporal_factor`` frames, with exact
+    conv-state carry (the published encode loop)."""
+    step = vae.cfg.temporal_factor
+    t = video.shape[1]
+    if (t - 1) % step:
+        raise ValueError(f"streaming_encode: {t} frames is not 1 + a multiple of {step}")
+    xc = video.permute(0, 4, 1, 2, 3)
+    cache = None
+    pieces = []
+    for start, end in [(0, 1)] + [(s, s + step) for s in range(1, t, step)]:
+        with tracing.span("encode.chunk"):
+            piece, cache = vae.encode_with_cache(xc[:, :, start:end], cache)
             pieces.append(piece.permute(0, 2, 3, 4, 1))
     return torch.cat(pieces, dim=1)

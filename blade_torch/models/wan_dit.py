@@ -1,10 +1,19 @@
-"""Wan2.1 text-to-video diffusion transformer (PyTorch), T2V.
+"""Wan2.1 video diffusion transformer (PyTorch): text-to-video, and
+image-to-video with ``image_dim`` set.
 
 Counterpart of ``blade/models/wan_dit.py``, with the diffusers
 ``WanTransformer3DModel`` state-dict layout: patchify (1,2,2), per-block
 AdaLN with a 6-way modulation table, video self-attention with 3-D RoPE and
 RMS q/k norm, text cross-attention, GELU(tanh) FFN, modulated head.  The
 model output is the flow-matching velocity.
+
+Image to video (Wan2.1-I2V): the DiT reads ``in_channels`` = the latents
+and the conditioning channels (``condition``: a first-frame mask and the
+VAE-encoded image clip), concatenated before patchify; CLIP image features
+go through the f32 image embedder (``condition_embedder.image_embedder``),
+and every block's cross-attention adds an image branch over them
+(``add_k_proj``, ``add_v_proj``, ``norm_added_k``): a second softmax
+beside the text's, the two outputs summed in ``dtype`` before ``to_out``.
 
 Numerics follow the JAX model: projections in ``dtype`` (bf16 on the card),
 their weights stored in it (``layers.Linear``); LayerNorms, modulation,
@@ -19,7 +28,7 @@ restored once at ``proj_out``.  ``remat=True`` recomputes each block in the
 backward (``torch.utils.checkpoint``, the counterpart of flax ``nn.remat``).
 The model runs under ``torch.func.functional_call`` with a substituted
 parameter dict (TDM's three roles over one base), and tolerates a base held
-in bf16.  The I2V image branch is not ported yet.
+in bf16.
 """
 
 from __future__ import annotations
@@ -50,7 +59,8 @@ from blade_torch.models.layers import (
 )
 from blade_torch.utils import tracing
 
-__all__ = ["WanConfig", "WanModel", "WAN_1_3B", "WAN_14B", "WAN_TINY"]
+__all__ = ["WanConfig", "WanModel", "WAN_1_3B", "WAN_14B", "WAN_TINY", "WAN_I2V_14B",
+           "WAN_I2V_TINY"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +76,10 @@ class WanConfig:
     patch_size: Tuple[int, int, int] = (1, 2, 2)
     eps: float = 1e-6
     cross_attn_norm: bool = True
+    # Image to video: the width of the CLIP image features and their tokens
+    # (ViT-H/14: 1280 x 257); None = text to video, no image branch.
+    image_dim: Optional[int] = None
+    image_context_tokens: int = 257
 
     @property
     def head_dim(self) -> int:
@@ -78,6 +92,11 @@ WAN_1_3B = WanConfig()
 WAN_14B = WanConfig(dim=5120, ffn_dim=13824, num_layers=40, num_heads=40)
 WAN_TINY = WanConfig(dim=128, ffn_dim=256, num_layers=2, num_heads=2, text_dim=64,
                      freq_dim=32)
+# Wan2.1-I2V-14B (Wan-AI/Wan2.1-I2V-14B-480P): the 14B DiT reading 36
+# channels (16 latent, 4 mask, 16 encoded image) and 257 x 1280 CLIP tokens.
+WAN_I2V_14B = dataclasses.replace(WAN_14B, in_channels=36, image_dim=1280)
+WAN_I2V_TINY = dataclasses.replace(WAN_TINY, in_channels=36, image_dim=48,
+                                   image_context_tokens=9)
 
 
 def _layer_norm(x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -121,7 +140,13 @@ class WanCrossAttention(nn.Module):
     split and merged by ``heads_pack`` / ``heads_unpack``; CPU tensors take
     their plain versions.  As in the JAX model, q . k and the softmax are in
     f32 and the kernel rounds P to bf16 for P @ V (the plain version keeps P
-    in f32)."""
+    in f32).
+
+    With ``image_dim`` set, the image branch (span ``dit.cross_attn.image``)
+    runs the same packed q over the image tokens' keys
+    (``norm_added_k(add_k_proj(img))``) and values (``add_v_proj(img)``) in
+    a second ``flash_attention`` call, its own softmax, and adds its output
+    to the text branch's in ``dtype`` before ``to_out``."""
 
     def __init__(self, c: WanConfig, dtype, device=None):
         super().__init__()
@@ -133,15 +158,27 @@ class WanCrossAttention(nn.Module):
         self.to_out = nn.ModuleList([Linear(c.dim, c.dim, **kw)])
         self.norm_q = RMSNorm(c.dim, eps=c.eps, device=device)
         self.norm_k = RMSNorm(c.dim, eps=c.eps, device=device)
+        if c.image_dim is not None:
+            self.add_k_proj = Linear(c.dim, c.dim, **kw)
+            self.add_v_proj = Linear(c.dim, c.dim, **kw)
+            self.norm_added_k = RMSNorm(c.dim, eps=c.eps, device=device)
 
-    def forward(self, x, context):
+    def forward(self, x, context, image_context=None):
         c = self.c
-        tracing.count("dit.cross_attn.recomputed_calls" if tracing.recomputing()
+        recomputing = tracing.recomputing()
+        tracing.count("dit.cross_attn.recomputed_calls" if recomputing
                       else "dit.cross_attn.calls")
         q = heads_pack(self.norm_q(self.to_q(x)), c.num_heads)
         k = heads_pack(self.norm_k(self.to_k(context)), c.num_heads)
         v = heads_pack(self.to_v(context), c.num_heads)
         out, _ = flash_attention(q, k, v)  # scale 1 / sqrt(head_dim)
+        if image_context is not None:
+            with tracing.span("dit.cross_attn.image"):
+                if not recomputing:
+                    tracing.count("dit.cross_attn.image_calls")
+                k = heads_pack(self.norm_added_k(self.add_k_proj(image_context)), c.num_heads)
+                v = heads_pack(self.add_v_proj(image_context), c.num_heads)
+                out = out + flash_attention(q, k, v)[0]
         return self.to_out[0](heads_unpack(out))
 
 
@@ -158,7 +195,8 @@ class WanBlock(nn.Module):
                       if c.cross_attn_norm else nn.Identity())
         self.ffn = FeedForward(c.dim, c.ffn_dim, compute_dtype=dtype, device=device)
 
-    def forward(self, x, context, temb6, cos, sin, attention_fn, attn_kwargs):
+    def forward(self, x, context, temb6, cos, sin, attention_fn, attn_kwargs,
+                image_context=None):
         c = self.c
         dtype = x.dtype
         with tracing.span("dit.block"):
@@ -175,7 +213,7 @@ class WanBlock(nn.Module):
                     n2 = self.norm2
                     norm_x = F.layer_norm(norm_x, (c.dim,), n2.weight.float(), n2.bias.float(),
                                           n2.eps)
-                x = x + self.attn2(norm_x.to(dtype), context).to(dtype)
+                x = x + self.attn2(norm_x.to(dtype), context, image_context).to(dtype)
             with tracing.span("dit.modulate"):
                 h = (_layer_norm(x, c.eps) * (1 + scale2) + shift2).to(dtype)
             with tracing.span("dit.ffn"):
@@ -195,6 +233,22 @@ class _TextEmbedder(nn.Module):
         return self.linear_2(F.gelu(self.linear_1(t), approximate="tanh"))
 
 
+class _ImageEmbedder(nn.Module):
+    """diffusers ``WanImageEmbedding``, all in f32: LayerNorm(image_dim) ->
+    Linear(image_dim, image_dim) -> exact GELU -> Linear(image_dim, dim) ->
+    LayerNorm(dim), LayerNorm eps 1e-5."""
+
+    def __init__(self, image_dim, dim, device=None):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(image_dim, eps=1e-5, device=device)
+        self.ff = FeedForward(image_dim, image_dim, out_dim=dim, compute_dtype=torch.float32,
+                              approximate="none", device=device)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5, device=device)
+
+    def forward(self, img):
+        return self.norm2(self.ff(self.norm1(img.float())))
+
+
 class _ConditionEmbedder(nn.Module):
     def __init__(self, c: WanConfig, dtype, device=None):
         super().__init__()
@@ -202,6 +256,8 @@ class _ConditionEmbedder(nn.Module):
         self.time_embedder = TimestepEmbedder(c.dim, c.freq_dim, device=device)
         self.time_proj = Linear(c.dim, 6 * c.dim, compute_dtype=torch.float32,
                                 device=device)
+        if c.image_dim is not None:
+            self.image_embedder = _ImageEmbedder(c.image_dim, c.dim, device)
 
 
 class WanModel(nn.Module):
@@ -211,7 +267,9 @@ class WanModel(nn.Module):
     self-attention over ``[B, H, L, D]`` in token order ``(t, h, w)``
     t-major (or in ``token_perm`` order).  With
     ``attn_kwargs['collect_mask']`` the forward returns ``(velocity,
-    masks [L, ...])``, the stand-in for flax's ``sow``.
+    masks [L, ...])``, the stand-in for flax's ``sow``.  With ``image_dim``
+    set, ``image_embeds [B, image_context_tokens, image_dim]`` and
+    ``condition [B, in_channels - out_channels, T, H, W]`` are required.
     """
 
     def __init__(self, cfg: WanConfig, *, dtype=torch.bfloat16,
@@ -272,8 +330,12 @@ class WanModel(nn.Module):
         wgt = self.patch_embedding.weight.reshape(c.dim, -1).to(self.dtype)
         return F.linear(x, wgt, self.patch_embedding.bias.to(self.dtype))
 
-    def forward(self, latents, timestep, text_embeds, attn_kwargs=None):
+    def forward(self, latents, timestep, text_embeds, attn_kwargs=None, image_embeds=None,
+                condition=None):
         c = self.cfg
+        if (image_embeds is None or condition is None) != (c.image_dim is None):
+            raise ValueError("image_embeds and condition are required iff image_dim is set "
+                             f"(image_dim={c.image_dim})")
         attn_kwargs = dict(attn_kwargs or {})
         collect = bool(attn_kwargs.get("collect_mask", False))
         b, _, t, h, w = latents.shape
@@ -282,6 +344,8 @@ class WanModel(nn.Module):
 
         with tracing.span("dit"):
             with tracing.span("dit.embed"):
+                if condition is not None:
+                    latents = torch.cat([latents, condition.to(latents.dtype)], dim=1)
                 x = self._patchify(latents)
                 ce = self.condition_embedder
                 ctx = ce.text_embedder(text_embeds.to(self.dtype))
@@ -291,12 +355,18 @@ class WanModel(nn.Module):
                 cos, sin = self._rope_tables((gt, gh, gw), latents.device)
                 if self.token_perm is not None:
                     x = x.index_select(1, self._perm_idx)
+            img = None
+            if image_embeds is not None:
+                with tracing.span("dit.image_embed"):
+                    img = ce.image_embedder(image_embeds).to(self.dtype)
 
             auxes = []
             remat = self.remat and torch.is_grad_enabled()
             for i, blk in enumerate(self.blocks):
                 args = (x, ctx, temb6, cos, sin, self.attention_fn,
                         dict(attn_kwargs, layer_index=i))
+                if img is not None:
+                    args += (img,)
                 x, aux = checkpoint_block(blk, *args) if remat else blk(*args)
                 if aux is not None:
                     auxes.append(aux)

@@ -1,12 +1,16 @@
-"""Text-to-video pipeline: text embeddings -> 8-step DiT -> VAE -> frames.
+"""Video pipeline: text embeddings -> 8-step DiT -> VAE -> frames, and for
+an image-to-video family image -> VAE encode -> conditioned DiT -> frames.
 
-Counterpart of ``blade/sampling/t2v.py`` for both families: Wan2.1 (8-step
-flow UniPC, f32 streaming Wan VAE decode) and CogVideoX (8-step
+Counterpart of ``blade/sampling/t2v.py`` for the families: Wan2.1 (8-step
+flow UniPC, f32 streaming Wan VAE decode), Wan2.1-I2V (the same, the image
+encoded by the f32 streaming Wan VAE encode into the channels every step
+reads, CLIP image features beside the text) and CogVideoX (8-step
 SDE-DPM++(2M), f32 CogVideoX VAE decode in ``frame_batch=2`` chunks,
-spatially tiled at 480p).  The text encoder is not ported yet, so callers
-hand in text embeddings ``[B, max_text_len, text_dim]``.  All entry points
-run under ``torch.inference_mode``.  What differs by family comes from the
-preset's ``Family`` record (``blade_torch.config``).
+spatially tiled at 480p).  The text and image encoders are not ported yet,
+so callers hand in text embeddings ``[B, max_text_len, text_dim]`` (and
+CLIP image features ``[B, image_context_tokens, image_dim]``).  All entry
+points run under ``torch.inference_mode``.  What differs by family comes
+from the preset's ``Family`` record (``blade_torch.config``).
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ class T2VPipeline:
               mask_mode: Optional[str] = None, dtype=torch.bfloat16,
               device=None) -> "T2VPipeline":
         """Modules with uninitialised weights (load or ``random_init_`` next).
-        The DiT computes in ``dtype``; the VAE decodes in f32.  ``mask_mode``
+        The DiT computes in ``dtype``; the VAE runs in f32.  ``mask_mode``
         defaults to the family's serving lane (multilevel for CogVideoX,
         energy for Wan)."""
         family = preset.family
@@ -78,7 +82,10 @@ class T2VPipeline:
         """Wan ``[B, C, T, H, W]``; CogVideoX ``[B, T, C, H, W]``."""
         return self.preset.family.latent_shape(self.preset, batch)
 
-    def model_fn(self):
+    def model_fn(self, **conditioning):
+        """The sampler's ``model_fn``, ``conditioning`` (an image-to-video
+        family's ``condition`` and ``image_embeds``) bound into every
+        forward."""
         def fn(latents, timestep, text_embeds, generator, masks=None,
                collect_mask=False):
             attn_kwargs = {"generator": generator}
@@ -86,21 +93,32 @@ class T2VPipeline:
                 attn_kwargs["masks"] = masks
             if collect_mask:
                 attn_kwargs["collect_mask"] = True
-            return self.dit(latents, timestep, text_embeds, attn_kwargs=attn_kwargs)
+            return self.dit(latents, timestep, text_embeds, attn_kwargs=attn_kwargs,
+                            **conditioning)
 
         return fn
 
     @torch.inference_mode()
     def sample_latents(self, text_embeds, *, generator: torch.Generator,
-                       num_steps: int = 8, mask_refresh_every: int = 0):
+                       num_steps: int = 8, mask_refresh_every: int = 0, **conditioning):
+        """Noise drawn from ``generator`` -> clean latents; ``conditioning``
+        goes to every DiT forward (:meth:`model_fn`)."""
         with tracing.timed("sample"):
             b = text_embeds.shape[0]
             noise = torch.randn(self.latent_shape(b), generator=fold_generator(generator, 0),
                                 device=self.device, dtype=torch.float32).to(self.dtype)
             refresh = mask_refresh_every if self.sparse else 0
             solver = self.preset.family.solver(self.preset, num_steps)
-            return sample(self.model_fn(), solver, noise, text_embeds, generator=generator,
-                          mask_refresh_every=refresh)
+            return sample(self.model_fn(**conditioning), solver, noise, text_embeds,
+                          generator=generator, mask_refresh_every=refresh)
+
+    @torch.inference_mode()
+    def encode_image(self, image):
+        """Image ``[B, 3, H, W]`` in [-1, 1] at the preset's size -> the
+        channels the DiT reads beside the latents (``Family.condition``:
+        Wan2.1-I2V's mask and streaming f32 encode), f32."""
+        with tracing.timed("encode"):
+            return self.preset.family.condition(self.vae, self.preset, image)
 
     @torch.inference_mode()
     def decode_latents(self, latents):
@@ -124,9 +142,19 @@ class T2VPipeline:
         return ((frames.float() + 1.0) * 127.5).clamp(0, 255).to(torch.uint8)
 
     def generate(self, text_embeds, *, generator: torch.Generator, num_steps: int = 8,
-                 mask_refresh_every: int = 0):
+                 mask_refresh_every: int = 0, image=None, image_embeds=None):
         """Text embeddings -> frames ``[B, T, H, W, 3]`` in [-1, 1] (CFG 1,
-        the distilled sampler's setting)."""
+        the distilled sampler's setting).  An image-to-video family also
+        takes the first frame ``image [B, 3, H, W]`` in [-1, 1] and its CLIP
+        features ``image_embeds``: encode, sample under that conditioning,
+        decode."""
+        conditioning = {}
+        if self.preset.family.condition is not None:
+            if image is None or image_embeds is None:
+                raise ValueError(f"preset family {self.preset.name!r} needs image and "
+                                 "image_embeds")
+            conditioning = {"condition": self.encode_image(image),
+                            "image_embeds": image_embeds}
         latents = self.sample_latents(text_embeds, generator=generator, num_steps=num_steps,
-                                      mask_refresh_every=mask_refresh_every)
+                                      mask_refresh_every=mask_refresh_every, **conditioning)
         return self.decode_latents(latents)

@@ -24,8 +24,10 @@ Spans, by layer (``blade.`` omitted):
   embedding, RoPE tables, token permute), ``dit.block`` holding
   ``dit.modulate`` (AdaLN norms, modulation, gated residuals), ``dit.qkv``
   (projections, q/k norm and RoPE), ``dit.self_attn`` (``attention_fn`` and
-  the output projection), ``dit.cross_attn`` (Wan), ``dit.ffn``;
-  ``dit.head``;
+  the output projection), ``dit.cross_attn`` (Wan) holding
+  ``dit.cross_attn.image`` (Wan2.1-I2V's image branch: its K/V projections,
+  norm and flash call), ``dit.ffn``; ``dit.head``; ``dit.image_embed``
+  (Wan2.1-I2V's f32 image embedder, once a forward);
 - ASA: ``asa`` (the model's ``attention_fn``) holding ``asa.predict``
   (block scores), ``asa.select`` (the energy mask or the level lists),
   ``asa.sparse`` (the block-sparse or multilevel kernel with its packing;
@@ -35,7 +37,9 @@ Spans, by layer (``blade.`` omitted):
   from the int level mask), ``asa.pooled`` (the pooled K/V and its dense
   call), ``asa.merge`` (LSE merge and cast);
 - VAE: ``decode`` (``decode_latents``), ``decode.tile`` (a spatial tile),
-  ``decode.chunk`` (a temporal chunk);
+  ``decode.chunk`` (a temporal chunk); ``encode`` (``encode_image``: an
+  image-to-video family's conditioning) and ``encode.chunk`` (a temporal
+  chunk of the streaming encode);
 - trainer: ``tdm.step`` (``train_step``), ``tdm.rollout``, ``tdm.merge``
   (a LoRA merge), ``tdm.fake`` and ``tdm.generator`` (the two updates),
   ``tdm.backward``, ``tdm.adam``; ``sync`` (a host readback of a device
@@ -49,12 +53,15 @@ q/k LayerNorm, RoPE and head split, one a joint attention) and
 ``dit.qk_norm_rope.recomputed_calls`` (those of blocks recomputed in a
 backward, counted there alone), ``dit.cross_attn.calls`` (Wan's text
 cross-attention, one a block) and ``dit.cross_attn.recomputed_calls`` (those
-of blocks recomputed in a backward, counted there alone), ``host_syncs``,
+of blocks recomputed in a backward, counted there alone),
+``dit.cross_attn.image_calls`` (Wan2.1-I2V's image branch, one a block; left
+out where recomputed), ``host_syncs``,
 ``asa.per_level_calls`` (calls of the per-level multilevel lane, those of
 blocks recomputed in a backward left out), ``asa.level_carry_calls`` (calls
 of the level carry, an int level mask past the fused lane's rule run as
 one carry on the card; left out where recomputed) and, from :func:`timed`
-spans, ``sample.seconds``, ``decode.seconds``, ``asa.levels.seconds`` and
+spans, ``sample.seconds``, ``decode.seconds``, ``encode.seconds``,
+``asa.levels.seconds`` and
 ``asa.level_merge.seconds`` (the per-level lane's two spans, left out where
 recomputed).
 """

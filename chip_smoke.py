@@ -173,10 +173,26 @@ no result):
    version and in turns with its library call; then ``WanCrossAttention``
    whole (projections, q/k RMS norms, relayouts, attention) at both widths,
    forward and (1.3B) forward with backward, against and in turns with the
-   library expression the kernels replaced (f32 scores, softmax, bf16 P @ V).
+   library expression the kernels replaced (f32 scores, softmax, bf16 P @ V);
+25. image to video: the kernels of its path at its 40 heads over 32,760
+   tokens against their plain versions on every head (#1 over the 257
+   image keys, whose last key tile holds one key, and as the energy lane's
+   predictor and pooled branch; #2 on the preset's own predictor's mask,
+   without its library call, whose token mask would take 86 GB; ``pack_kv``
+   over the ragged 32,760 keys, bit for bit); then one full-width,
+   full-depth Wan2.1-I2V-14B 480p request
+   (``wan-i2v-14b-480p``: a first frame and CLIP features drawn from the
+   seed, the f32 streaming VAE encode, 8 UniPC steps on the energy lane,
+   the decode) through ``build_pipeline``, ``image_inputs`` and
+   ``T2VPipeline.generate`` under a CPU profiler, so the program counts:
+   exact launch counts (a layer a step: four dense forwards -- the
+   predictor, the pooled branch, the text and the image cross-attention --,
+   one sparse, one pack, two ``norm_rope``, five ``heads_pack``, one
+   ``heads_unpack``) and the counter ``dit.cross_attn.image_calls`` one a
+   layer a step.
 
 The second-to-last line is the card's ``name, power.limit``; before it, one
-JSON line with the per-kernel results (``launches`` sums the eight paths,
+JSON line with the per-kernel results (``launches`` sums the nine paths,
 each counted from zero; ``launches_by_path`` splits them); the summary line
 before that ends with the script's wall time.
 """
@@ -2396,6 +2412,145 @@ def check_wan_cross_attn(torch, dev, checks):
     return res
 
 
+def check_wan_i2v_kernels(torch, dev, checks):
+    """Phase 25, first half: the kernels of the I2V 480p path at its 40
+    heads over 32,760 tokens, each against its plain version (f32) on every
+    head -- #1 over the 257 image keys (the last key tile holds one key),
+    the energy lane's predictor and pooled branch (#1), its sparse rows (#2)
+    on the mask of the preset's own predictor, and ``pack_kv`` (#3) over the
+    32,760 keys (a ragged last block)."""
+    from blade_torch import config as C
+    from blade_torch.attention import asa
+    from blade_torch.kernels.block_sparse_attn import (
+        block_sparse_attention, flash_attention, flash_attention_wide_v)
+    from blade_torch.kernels.pack import _pack_kv_reference, pack_kv
+    from blade_torch.kernels.ref_attention import (
+        block_masked_attention, dense_attention_with_lse)
+    from blade_torch.utils.rng import make_generator
+
+    gen = make_generator(2580, dev)
+    record = _recorder(checks)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    preset = C.WAN_I2V_480P
+    cfg = C.derive_asa_config(preset)
+    h, d = preset.dit.num_heads, preset.dit.head_dim
+    L, li = math.prod(preset.latent_grid()), preset.dit.image_context_tokens
+    assert (h, d, L, li) == (40, 128, 32760, 257)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    q, k, v = randn(1, h, L, d), randn(1, h, L, d), randn(1, h, L, d)
+    ki, vi = randn(1, h, li, d), randn(1, h, li, d)
+    _attn_check(torch, record, "dense_fwd", f"image branch q [1,{h},{L},128] k,v [1,{h},257,128]",
+                lambda: flash_attention(q, ki, vi),
+                lambda: dense_attention_with_lse(q, ki, vi), 20, 1, False,
+                *_dense_work(q, ki, vi), library=lambda: sdpa(q, ki, vi))
+    del ki, vi
+
+    tokens, n_kt = cfg.sample_tokens_per_block, -(-L // 128)
+    ls = n_kt * tokens
+    qs, ks = randn(1, h, ls, d), randn(1, h, ls, d)
+    pool = torch.nn.functional.one_hot(torch.arange(ls, device=dev) // tokens, n_kt)
+    pool = pool.to(torch.bfloat16).expand(1, h, ls, n_kt).contiguous()
+    _attn_check(torch, record, "dense_fwd",
+                f"predictor q,k [1,{h},{ls},128] v [1,{h},{ls},{n_kt}]",
+                lambda: flash_attention_wide_v(qs, ks, pool),
+                lambda: dense_attention_with_lse(qs, ks, pool), 20, 1, False,
+                *_dense_work(qs, ks, pool), library=lambda: sdpa(qs, ks, pool))
+    del qs, ks, pool
+    gap = cfg.sample_gap
+    kp = k.float().reshape(1, h, -1, gap, d).mean(3).to(torch.bfloat16)
+    vp = v.float().reshape(1, h, -1, gap, d).mean(3).to(torch.bfloat16)
+    _attn_check(torch, record, "dense_fwd",
+                f"pooled q [1,{h},{L},128] k,v [1,{h},{L // gap},128]",
+                lambda: flash_attention(q, kp, vp, bias=math.log(gap)),
+                lambda: dense_attention_with_lse(q, kp, vp, bias=math.log(gap)), 20, 1, False,
+                *_dense_work(q, kp, vp), library=lambda: sdpa(q, kp, vp))
+    del kp, vp
+
+    # The token mask of the masked-SDPA library call would take 86 GB at 40
+    # heads: the sparse rows are held and timed without it.
+    mask = asa.compute_mask(q, k, cfg, generator=make_generator(7, dev))
+    density = mask.float().mean().item()
+    _attn_check(torch, record, "sparse_fwd", f"q,k,v [1,{h},{L},128] density {density:.4f} "
+                f"{_row_blocks(mask)}",
+                lambda: block_sparse_attention(q, k, v, mask),
+                lambda: block_masked_attention(q, k, v, mask, block_k=128), 10, 1, False,
+                4.0 * d * _block_pairs(mask, L, L), _nbytes(q, k, v, mask))
+
+    kf, vf = k.view(h, L, d), v.view(h, L, d)
+    got, want = pack_kv(kf, vf), _pack_kv_reference(kf, vf)
+    record("pack_kv", f"k,v [{h},{L},128] -> [{h},{got.shape[1]},128]",
+           torch.equal(got, want), _max_err(got, want),
+           _cuda_ms(torch, lambda: pack_kv(kf, vf), 50),
+           _cuda_ms(torch, lambda: _pack_kv_reference(kf, vf), 50), "bit exact", False,
+           0.0, _nbytes(kf, vf, got))
+    del q, k, v, mask, kf, vf, got, want
+    torch.cuda.empty_cache()
+    return density
+
+
+def serve_wan_i2v(torch, dev):
+    """Phase 25: one full-width, full-depth Wan2.1-I2V-14B 480p request
+    (encode, 8 steps, decode) under a CPU profiler, with exact launch counts
+    and the image branch's counter."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from blade_torch.cli.inference import (
+        build_pipeline,
+        get_args,
+        image_inputs,
+        random_text_embeds,
+    )
+    from blade_torch.kernels._build import KERNELS, reset_launch_counts
+    from blade_torch.utils import tracing
+    from blade_torch.utils.rng import make_generator
+
+    args = get_args(["--preset", "wan-i2v-14b-480p", "--random-init", "--seed", "8888",
+                     "--steps", "8"])
+    t0 = time.perf_counter()
+    pipe = build_pipeline(args)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in pipe.dit.parameters())
+    print(f"wan i2v pipeline built in {time.perf_counter() - t0:.2f} s; DiT params "
+          f"{n_params / 1e9:.3f} B; allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    c = pipe.preset.dit
+    assert (c.num_layers, c.dim, c.in_channels, c.image_dim) == (40, 5120, 36, 1280)
+    text = random_text_embeds(pipe, "a corgi surfing a wave at sunset")
+    image, feats = image_inputs(pipe, None, args.seed)
+    assert image.shape == (1, 3, 480, 832) and feats.shape == (1, 257, 1280)
+    tracing.reset()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU]):
+        frames = pipe.generate(text, generator=make_generator(args.seed, dev),
+                               num_steps=args.steps, image=image, image_embeds=feats)
+        u8 = pipe.frames_to_uint8(frames)
+        torch.cuda.synchronize()
+    clip_s = time.perf_counter() - t
+    counters = tracing.counters()
+    tracing.reset()
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    assert u8.shape == (1, 81, 480, 832, 3) and torch.isfinite(frames).all()
+    n = c.num_layers * args.steps
+    want = {"dense_fwd": 4 * n, "sparse_fwd": n, "pack_kv": n, "norm_rope": 2 * n,
+            "heads_pack": 5 * n, "heads_unpack": n}
+    for name, count in launches.items():
+        assert count == want.get(name, 0), (name, count, want.get(name, 0))
+    assert counters["dit.cross_attn.image_calls"] == counters["dit.cross_attn.calls"] == n
+    result = dict(clip_s=clip_s, encode_s=counters["encode.seconds"],
+                  sample_s=counters["sample.seconds"], decode_s=counters["decode.seconds"],
+                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                  image_calls=counters["dit.cross_attn.image_calls"],
+                  frames_mean=float(u8.float().mean()))
+    print("wan i2v request (cold, CPU profiler on) " + json.dumps(result))
+    print("launches over the i2v request " + json.dumps(launches))
+    del pipe
+    return result, launches
+
+
 def _tdm_forwards(k_step, cfg, lambda_reg):
     """DiT forwards a TDM step runs with remat: the k_step trajectory, the
     student's x0, the teacher's x0 when lambda_reg > 0, the fake and the
@@ -2548,6 +2703,12 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     cross_attn = check_wan_cross_attn(torch, dev, checks)
+    gc.collect()
+    torch.cuda.empty_cache()
+    i2v_density = check_wan_i2v_kernels(torch, dev, checks)
+    gc.collect()
+    torch.cuda.empty_cache()
+    i2v, i2v_launches = serve_wan_i2v(torch, dev)
 
     warm, cog, w14 = results[1], cog_results[1], w14_results[0]
     print("summary " + json.dumps(dict(
@@ -2591,11 +2752,14 @@ def main():
         train_cog_peak_mem_gib=trained_cog["peak_mem_gib"],
         cross_attn_ms={name: r["fwd_ms"] for name, r in cross_attn.items()},
         cross_attn_library_ms={name: r["library_fwd_ms"] for name, r in cross_attn.items()},
+        i2v_clip_s=i2v["clip_s"], i2v_encode_s=i2v["encode_s"],
+        i2v_peak_mem_gib=i2v["peak_mem_gib"], i2v_kernel_check_density=i2v_density,
         wall_s=time.perf_counter() - t_start)))
     paths = {"serve_wan": serve_launches, "train_wan": train_launches,
              "serve_cog": cog_launches, "serve_wan14b": w14_launches,
              "serve_wan_maxpred": max_launches, "serve_wan_union": union_launches,
-             "grad_cog_multilevel": cog_grad_launches, "train_cog": train_cog_launches}
+             "grad_cog_multilevel": cog_grad_launches, "train_cog": train_cog_launches,
+             "serve_wan_i2v": i2v_launches}
     kernels = []
     for name, k in _build.KERNELS.items():
         main_check = next(c for c in checks[name] if c["main"])

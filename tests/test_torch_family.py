@@ -36,6 +36,7 @@ def test_family_record_answers(name, shape, want):
     family = preset.family
     assert family is C.FAMILIES[preset.name]
     assert family.latent_shape(preset, 1) == T.latent_shape(preset, 1) == shape
+    assert shape[family.channel_axis] == preset.dit.in_channels == preset.dit.out_channels
     assert family.mask_mode == C.derive_asa_config(preset).mask_mode == want["lane"]
     assert (family.dit_class, family.vae_class) == (want["dit"], want["vae"])
     cfg = T.tdm_config(T.get_args(["--family", preset.name, "--output_dir", "unused"]))

@@ -109,6 +109,9 @@ def _err(a, b):
     (200, 300, 128, 320, 0.0, 3),
     (150, 200, 64, 192, 0.2, 3),
     (100, 129, 128, 64, 0.0, 3),
+    # Wan2.1-I2V-14B 480p's image branch: 32,760 queries of 40 heads over 257
+    # image keys (the last key tile holds one)
+    (32760, 257, 128, 128, 0.0, 40),
 ])
 def test_dense_kernel_matches_plain(dev, lq, lk, d, dv, bias, heads):
     gen = torch.Generator(device=dev).manual_seed(lq + lk + d + dv + heads)
@@ -989,6 +992,76 @@ def test_wan_cross_attention_matches_its_f32_expression(dev, lq, lk):
     for g, r in zip((out, *got), (ref, *want)):
         assert torch.isfinite(g.float()).all()
         assert _err(g, r) <= BWD_REL * r.float().abs().max().item()
+
+
+def test_wan_i2v_cross_attention_matches_its_two_softmax_expression(dev):
+    """Wan2.1-I2V's cross-attention at the 1.3B's width: the text branch
+    over 512 keys and the image branch over 257 on two #1 calls sharing the
+    packed q, their outputs summed in bf16, against the f32 expression of
+    the two softmaxes (each branch rounded to bf16 before the sum, as the
+    JAX model does); q, k, v and the image K/V packed, the sum unpacked."""
+    import dataclasses
+
+    from blade_torch.models.layers import init_lecun_
+    from blade_torch.models.wan_dit import WAN_1_3B, WanCrossAttention
+
+    c = dataclasses.replace(WAN_1_3B, image_dim=1280)
+    attn = WanCrossAttention(c, torch.bfloat16)
+    with torch.no_grad():
+        init_lecun_(attn, torch.Generator().manual_seed(257))
+        for norm in (attn.norm_q, attn.norm_k, attn.norm_added_k):
+            norm.weight.uniform_(0.5, 1.5, generator=torch.Generator().manual_seed(5))
+    attn = attn.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(769)
+    x = _rand(gen, 1, 1000, c.dim, dev=dev)
+    context, image = _rand(gen, 1, 512, c.dim, dev=dev), _rand(gen, 1, 257, c.dim, dev=dev)
+    names = ("dense_fwd", "heads_pack", "heads_unpack")
+    before = [_build.KERNELS[n].launches for n in names]
+    with torch.no_grad():
+        out = attn(x, context, image)
+        torch.cuda.synchronize()
+    assert [_build.KERNELS[n].launches - b for n, b in zip(names, before)] == [2, 5, 1]
+
+    def heads(t):
+        return t.float().reshape(1, t.shape[1], c.num_heads, c.head_dim).transpose(1, 2)
+
+    def branch(q, k, v):
+        p = torch.softmax(q @ k.transpose(-1, -2) / math.sqrt(c.head_dim), dim=-1)
+        return (p @ v).transpose(1, 2).reshape(1, -1, c.dim).to(torch.bfloat16)
+
+    with torch.no_grad():
+        q = heads(attn.norm_q(attn.to_q(x)))
+        text = branch(q, heads(attn.norm_k(attn.to_k(context))), heads(attn.to_v(context)))
+        img = branch(q, heads(attn.norm_added_k(attn.add_k_proj(image))),
+                     heads(attn.add_v_proj(image)))
+        ref = attn.to_out[0](text + img)
+        one = torch.cat([attn.norm_k(attn.to_k(context)),
+                         attn.norm_added_k(attn.add_k_proj(image))], 1)
+        joint = branch(q, heads(one), heads(torch.cat([attn.to_v(context),
+                                                       attn.add_v_proj(image)], 1)))
+        ref_one = attn.to_out[0](joint)
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+    tol = BWD_REL * ref.float().abs().max().item()
+    assert _err(out, ref) <= tol
+    # one softmax over the 769 keys is another function, far past the tolerance
+    assert _err(ref_one, ref) > 10 * tol
+
+
+def test_streaming_encode_matches_the_whole_clip_on_the_card(dev):
+    """The Wan VAE encoder at its full widths over a short clip (9 frames of
+    64 x 96, TF32 off): frame 0 then 4-frame chunks with the caches carried
+    equals the whole-clip encode to f32 rounding."""
+    from blade_torch.models import vae_wan as V
+    from blade_torch.utils.rng import make_generator
+
+    vae = V.WanVAE(V.WAN21_VAE, encoder=True, device=dev).eval()
+    vae.random_init_(make_generator(11, dev))
+    gen = torch.Generator(device=dev).manual_seed(12)
+    video = torch.rand((1, 9, 64, 96, 3), generator=gen, device=dev) * 2 - 1
+    with torch.no_grad():
+        streamed, whole = V.streaming_encode(vae, video), vae.encode(video)
+    assert streamed.shape == (1, 3, 8, 12, 16)
+    assert _err(streamed, whole) <= 1e-4 * whole.abs().max().item()
 
 
 def test_cuda_inputs_never_fall_back(dev):

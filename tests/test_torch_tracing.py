@@ -18,6 +18,12 @@
 * Wan's text cross-attention counts ``dit.cross_attn.calls`` once a layer a
   forward (CogVideoX, which has none, counts nothing of it); remat's
   recomputation counts ``dit.cross_attn.recomputed_calls`` alone.
+* Wan2.1-I2V's generate opens ``encode`` (with ``encode.chunk`` a chunk of
+  the streaming encode), ``dit.image_embed`` once a forward and
+  ``dit.cross_attn.image`` inside every ``dit.cross_attn``, and counts
+  ``dit.cross_attn.image_calls`` once a layer a forward and
+  ``encode.seconds``; the text-to-video families open and count none of
+  them.
 * Past the fused lane's rule an int level mask takes the per-level lane on
   the CPU (the level carry is the card's); the carry itself opens
   ``asa.level_lists`` and counts ``asa.level_carry_calls``, not where
@@ -333,7 +339,8 @@ def test_the_level_carry_opens_its_span_and_counts_once(tmp_path):
 
 # -- Wan's text cross-attention counters --------------------------------------
 
-CROSS_ATTN = ("dit.cross_attn.calls", "dit.cross_attn.recomputed_calls")
+CROSS_ATTN = ("dit.cross_attn.calls", "dit.cross_attn.recomputed_calls",
+              "dit.cross_attn.image_calls")
 
 
 def _cross_attn_counters():
@@ -368,3 +375,39 @@ def test_remat_counts_the_recomputed_cross_attentions_alone(remat):
     if remat:
         want["dit.cross_attn.recomputed_calls"] = layers
     assert _cross_attn_counters() == want
+
+
+# -- Wan2.1-I2V: the encode and the image branch ------------------------------
+
+I2V_PARENTS = dict(PARENTS, **{"encode": {None}, "encode.chunk": {"encode"},
+                               "dit.image_embed": {"dit"},
+                               "dit.cross_attn.image": {"dit.cross_attn"}})
+
+
+def _i2v_inputs(pipe):
+    p, g = pipe.preset, make_generator(3)
+    image = torch.rand((1, 3, p.video.height, p.video.width), generator=g) * 2 - 1
+    embeds = torch.randn((1, p.dit.image_context_tokens, p.dit.image_dim), generator=g)
+    return {"image": image, "image_embeds": embeds}
+
+
+def test_i2v_generate_opens_the_encode_and_image_spans_and_counts_the_branch(tmp_path):
+    preset = dataclasses.replace(C.WAN_I2V_TINY_PRESET, video=C.VideoSpec(9, 64, 64, fps=4))
+    pipe = T2VPipeline.random_init(preset, make_generator(0), dtype=torch.float32)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        frames = pipe.generate(_text(pipe), generator=make_generator(2), num_steps=STEPS,
+                               **_i2v_inputs(pipe))
+    assert frames.shape == (1, 9, 64, 64, 3) and torch.isfinite(frames).all()
+    spans = _spans(prof, tmp_path)
+    names = [s[0] for s in spans]
+    assert set(names) == set(I2V_PARENTS) - {"decode.tile"}
+    for s in spans:
+        assert _parent(spans, s) in I2V_PARENTS[s[0]], s
+    layers = preset.dit.num_layers
+    assert names.count("encode") == 1
+    assert names.count("encode.chunk") == 1 + 8 // preset.vae.temporal_factor
+    assert names.count("dit.image_embed") == STEPS
+    assert names.count("dit.cross_attn.image") == names.count("dit.cross_attn") == STEPS * layers
+    got = tracing.counters()
+    assert got["dit.cross_attn.image_calls"] == got["dit.cross_attn.calls"] == STEPS * layers
+    assert got["encode.seconds"] > 0.0
