@@ -18,7 +18,11 @@ beside the text's, the two outputs summed in ``dtype`` before ``to_out``.
 Numerics follow the JAX model: projections in ``dtype`` (bf16 on the card),
 their weights stored in it (``layers.Linear``); LayerNorms, modulation,
 gates, the time embedding and ``proj_out`` in f32 with f32 parameters; the
-residual stream in ``dtype``.
+residual stream in ``dtype``.  A block's glue (its two modulated LayerNorms,
+the cross-attention's LayerNorm, the residual and gated residual adds) and
+the head's modulated LayerNorm run as the row kernels of
+``kernels/adaln.py`` where autograd records nothing, with the same rounding
+points, and as the expression they stand for otherwise.
 
 Self-attention q/k run with the ``deinterleave_perm`` channel permutation
 folded into ``to_q``/``to_k`` and ``norm_q``/``norm_k`` once at load time, so
@@ -42,6 +46,14 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from blade_torch.attention.integration import stack_masks
+from blade_torch.kernels.adaln import (
+    add_norm_affine,
+    add_norm_affine_reference,
+    gated_add,
+    gated_add_reference,
+    norm_affine,
+    norm_affine_reference,
+)
 from blade_torch.kernels.block_sparse_attn import flash_attention
 from blade_torch.kernels.norm_rope import heads_pack, heads_unpack, norm_rope_heads
 from blade_torch.models.layers import (
@@ -99,8 +111,10 @@ WAN_I2V_TINY = dataclasses.replace(WAN_TINY, in_channels=36, image_dim=48,
                                    image_context_tokens=9)
 
 
-def _layer_norm(x: torch.Tensor, eps: float) -> torch.Tensor:
-    return F.layer_norm(x.float(), x.shape[-1:], eps=eps)
+# The block's glue (LayerNorms, modulation, residual adds): the row kernels,
+# and the expression they stand for.
+_FUSED_GLUE = (norm_affine, add_norm_affine, gated_add)
+_PLAIN_GLUE = (norm_affine_reference, add_norm_affine_reference, gated_add_reference)
 
 
 class WanSelfAttention(nn.Module):
@@ -198,28 +212,33 @@ class WanBlock(nn.Module):
     def forward(self, x, context, temb6, cos, sin, attention_fn, attn_kwargs,
                 image_context=None):
         c = self.c
-        dtype = x.dtype
+        # Where autograd records nothing, the glue runs as the row kernels
+        # (CPU tensors: their plain versions); otherwise as the expression
+        # they stand for, whose gradient autograd takes.
+        fused = not torch.is_grad_enabled()
+        if not tracing.recomputing():
+            tracing.count("dit.modulate.fused_calls" if fused else "dit.modulate.autograd_calls")
+        norm, add_norm, gated = _FUSED_GLUE if fused else _PLAIN_GLUE
         with tracing.span("dit.block"):
             with tracing.span("dit.modulate"):
                 e = (self.scale_shift_table + temb6).float()
-                shift1, scale1, gate1, shift2, scale2, gate2 = (e[:, i:i + 1] for i in range(6))
-                h = _layer_norm(x, c.eps) * (1 + scale1) + shift1
-            attn, aux = self.attn1(h.to(dtype), cos, sin, attention_fn, attn_kwargs)
+                shift1, scale1, gate1, shift2, scale2, gate2 = e.unbind(1)
+                h = norm(x, 1 + scale1, shift1, c.eps)
+            attn, aux = self.attn1(h, cos, sin, attention_fn, attn_kwargs)
             with tracing.span("dit.modulate"):
-                x = x + (gate1 * attn.float()).to(dtype)
-            with tracing.span("dit.cross_attn"):
-                norm_x = x.float()
                 if c.cross_attn_norm:
                     n2 = self.norm2
-                    norm_x = F.layer_norm(norm_x, (c.dim,), n2.weight.float(), n2.bias.float(),
-                                          n2.eps)
-                x = x + self.attn2(norm_x.to(dtype), context, image_context).to(dtype)
+                    x, n = add_norm(x, attn, gate1, n2.weight.float(), n2.bias.float(), n2.eps)
+                else:
+                    x = n = gated(x, attn, gate1)
+            with tracing.span("dit.cross_attn"):
+                cross = self.attn2(n, context, image_context)
             with tracing.span("dit.modulate"):
-                h = (_layer_norm(x, c.eps) * (1 + scale2) + shift2).to(dtype)
+                x, h = add_norm(x, cross, None, 1 + scale2, shift2, c.eps)
             with tracing.span("dit.ffn"):
                 f = self.ffn(h)
             with tracing.span("dit.modulate"):
-                x = x + (gate2 * f.float()).to(dtype)
+                x = gated(x, f, gate2)
             return x, aux
 
 
@@ -372,10 +391,9 @@ class WanModel(nn.Module):
                     auxes.append(aux)
 
             with tracing.span("dit.head"):
-                e = (self.scale_shift_table + temb[:, None, :]).float()
-                shift, scale = e[:, 0:1], e[:, 1:2]
-                xh = _layer_norm(x, c.eps) * (1 + scale) + shift
-                out = self.proj_out(xh.to(self.dtype).float())
+                shift, scale = (self.scale_shift_table + temb[:, None, :]).float().unbind(1)
+                norm = norm_affine_reference if torch.is_grad_enabled() else norm_affine
+                out = self.proj_out(norm(x, 1 + scale, shift, c.eps).float())
                 if self.token_perm is not None:
                     out = out.index_select(1, self._inv_idx)
                 out = out.reshape(b, gt, gh, gw, pt, ph, pw, c.out_channels)

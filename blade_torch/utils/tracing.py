@@ -22,7 +22,8 @@ Spans, by layer (``blade.`` omitted):
   (one sampler step), ``sample.update`` (``unipc_step`` / ``dpm_step``);
 - DiT: ``dit`` (a model forward), ``dit.embed`` (patchify, time and text
   embedding, RoPE tables, token permute), ``dit.block`` holding
-  ``dit.modulate`` (AdaLN norms, modulation, gated residuals), ``dit.qkv``
+  ``dit.modulate`` (AdaLN norms, modulation, gated residuals; in Wan's
+  block also the cross-attention's LayerNorm and residual), ``dit.qkv``
   (projections, q/k norm and RoPE), ``dit.self_attn`` (``attention_fn`` and
   the output projection), ``dit.cross_attn`` (Wan) holding
   ``dit.cross_attn.image`` (Wan2.1-I2V's image branch: its K/V projections,
@@ -55,6 +56,9 @@ backward, counted there alone), ``dit.cross_attn.calls`` (Wan's text
 cross-attention, one a block) and ``dit.cross_attn.recomputed_calls`` (those
 of blocks recomputed in a backward, counted there alone),
 ``dit.cross_attn.image_calls`` (Wan2.1-I2V's image branch, one a block; left
+out where recomputed), ``dit.modulate.fused_calls`` and
+``dit.modulate.autograd_calls`` (a Wan block forward whose glue ran as the
+row kernels, where autograd records nothing, or as their expression; left
 out where recomputed), ``host_syncs``,
 ``asa.per_level_calls`` (calls of the per-level multilevel lane, those of
 blocks recomputed in a backward left out), ``asa.level_carry_calls`` (calls

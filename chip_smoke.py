@@ -189,7 +189,18 @@ no result):
    predictor, the pooled branch, the text and the image cross-attention --,
    one sparse, one pack, two ``norm_rope``, five ``heads_pack``, one
    ``heads_unpack``) and the counter ``dit.cross_attn.image_calls`` one a
-   layer a step.
+   layer a step;
+26. Wan's block glue (``csrc/adaln.cu``) at the 1.3B's and the 14B's rows:
+   ``norm_affine``, ``add_norm_affine`` and ``gated_add`` against their
+   plain versions (residual outputs bit for bit, normed ones within one
+   bf16 ulp of the row), the first and the last in turns with their
+   library call (``F.layer_norm``, ``torch.addcmul``), then one block's
+   glue whole in turns with the expression it replaced.  Every Wan path
+   above counts the glue's launches exactly where autograd records
+   nothing: a block's ``norm_affine``, two ``add_norm_affine`` and one
+   ``gated_add``, and the head's ``norm_affine``, a forward (phase 8: the
+   no-grad forwards of a step alone; phase 25 also the counter
+   ``dit.modulate.fused_calls`` one a layer a step).
 
 The second-to-last line is the card's ``name, power.limit``; before it, one
 JSON line with the per-kernel results (``launches`` sums the nine paths,
@@ -212,6 +223,14 @@ COG_KERNELS = ("multilevel_fwd", "pack_kv_pyramid", "dense_fwd", "qk_norm_rope",
 # and HBM3 bandwidth.  bound_ms = max(operations / rate, bytes / bandwidth).
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
+
+
+def _glue_launches(layers, forwards):
+    """The block glue's launches over ``forwards`` no-grad Wan forwards of
+    ``layers`` blocks: a block's four (``norm_affine``, ``add_norm_affine``
+    twice, ``gated_add``) and the head's ``norm_affine``."""
+    return {"norm_affine": (layers + 1) * forwards, "add_norm_affine": 2 * layers * forwards,
+            "gated_add": layers * forwards}
 
 
 def _nvidia_smi() -> str:
@@ -633,7 +652,8 @@ def serve(torch, dev):
     L, steps = pipe.preset.dit.num_layers, args.steps
     # the text cross-attention packs q, k and v and unpacks its output a layer
     per_clip = {"norm_rope": 2 * L * steps, "sparse_fwd": L * steps, "pack_kv": L * steps,
-                "heads_pack": 3 * L * steps, "heads_unpack": L * steps}
+                "heads_pack": 3 * L * steps, "heads_unpack": L * steps,
+                **_glue_launches(L, steps)}
     for name, n in per_clip.items():
         assert launches[name] == 2 * n, (name, launches[name], 2 * n)
     assert launches["dense_fwd"] >= 2 * 3 * L * steps, launches
@@ -1030,6 +1050,10 @@ def train(torch, dev):
         assert counts["heads_pack"] == 3 * fwd + 2 * layers, (i, counts["heads_pack"])
         assert counts["heads_unpack"] == fwd + 6 * layers, (i, counts["heads_unpack"])
         assert all(counts[n] > 0 for n in SERVE_KERNELS), (i, counts)
+        # the block glue's kernels in the no-grad forwards alone: the two
+        # gradient forwards (and remat's recomputation) take the expression
+        for name, n in _glue_launches(layers, fwd // layers - 4).items():
+            assert counts[name] == n, (i, name, counts[name], n)
     # the adapters moved (b starts at zero); the frozen base is bit-unchanged
     moved_g = sum(state.lora_g[k].abs().sum().item() for k in state.lora_g if k.endswith(".b"))
     moved_f = sum(state.lora_f[k].abs().sum().item() for k in state.lora_f if k.endswith(".b"))
@@ -1547,7 +1571,8 @@ def serve_wan14b(torch, dev):
                                        (1, 81, 720, 1280, 3), n=1)
     n = c.num_layers * args.steps
     want = {"dense_fwd": 2 * n, "multilevel_fwd": n, "pack_kv_pyramid": n,
-            "norm_rope": 2 * n, "heads_pack": 3 * n, "heads_unpack": n}
+            "norm_rope": 2 * n, "heads_pack": 3 * n, "heads_unpack": n,
+            **_glue_launches(c.num_layers, args.steps)}
     for name, count in launches.items():
         assert count == want.get(name, 0), (name, count, want.get(name, 0))
 
@@ -1784,7 +1809,8 @@ def serve_maxpred(torch, dev, stock):
         restore()
     n = pipe.preset.dit.num_layers * args.steps
     want = {"pooled_predictor": n, "dense_fwd": 2 * n, "sparse_fwd": n, "pack_kv": n,
-            "norm_rope": 2 * n, "heads_pack": 3 * n, "heads_unpack": n}
+            "norm_rope": 2 * n, "heads_pack": 3 * n, "heads_unpack": n,
+            **_glue_launches(pipe.preset.dit.num_layers, args.steps)}
     for name, count in launches.items():  # per request
         assert count == 2 * want.get(name, 0), (name, count, 2 * want.get(name, 0))
     assert len(densities) == 2 * n
@@ -1876,7 +1902,7 @@ def serve_union(torch, dev, stock):
     assert bsa.SPARSE_UNION is False
     n = pipe.preset.dit.num_layers * args.steps
     want = {"sparse_union_fwd": n, "dense_fwd": 3 * n, "norm_rope": 2 * n, "heads_pack": 3 * n,
-            "heads_unpack": n}
+            "heads_unpack": n, **_glue_launches(pipe.preset.dit.num_layers, args.steps)}
     for name, count in launches.items():  # no sparse_fwd, no pack_kv: K/V in place
         assert count == want.get(name, 0), (name, count, want.get(name, 0))
     density = torch.stack(densities).mean().item()
@@ -2412,6 +2438,102 @@ def check_wan_cross_attn(torch, dev, checks):
     return res
 
 
+def _bf16_ulp_ok(torch, got, want):
+    """(ok, max |err|): every element within one bf16 ulp at its row's
+    largest value (a LayerNorm's sums in another order can turn one
+    rounding)."""
+    g, w = got.float(), want.float()
+    top = torch.maximum(g.abs(), w.abs()).amax(-1, keepdim=True).clamp_min(2.0 ** -100)
+    ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    err = (g - w).abs()
+    return bool((err <= ulp).all()), err.max().item()
+
+
+def check_wan_modulate(torch, dev, checks):
+    """Phase 26: Wan's block glue (``csrc/adaln.cu``) at the 1.3B's and the
+    14B's rows: ``norm_affine`` (the modulation's per-sample tables; library
+    ``F.layer_norm`` with its own affine, in turns), ``add_norm_affine``
+    (the gated residual and the cross-attention LayerNorm; no one library
+    call), ``gated_add`` (library ``torch.addcmul``, in turns), each
+    against its plain version; then one block's glue whole, the four calls
+    a block makes, in turns with the expression they replaced."""
+    import torch.nn.functional as F
+
+    from blade_torch.kernels import adaln
+
+    gen = torch.Generator(device=dev).manual_seed(2626)
+    record = _recorder(checks)
+    eps, res = 1e-6, {}
+    for name, length, dim in (("wan", 32760, 1536), ("wan14b", 75600, 5120)):
+        main = name == "wan14b"
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+        x, y, y2 = randn(1, length, dim), randn(1, length, dim), randn(1, length, dim)
+        e = 0.5 * torch.randn((1, 6, dim), generator=gen, device=dev)
+        shift1, scale1, gate1, shift2, scale2, gate2 = e.unbind(1)
+        w1 = 1 + scale1
+        nw = 1.0 + 0.2 * torch.randn(dim, generator=gen, device=dev)
+        nb = 0.1 * torch.randn(dim, generator=gen, device=dev)
+        shape = f"x [1,{length},{dim}]"
+        tables = _nbytes(w1, shift1)
+
+        got = adaln.norm_affine(x, w1, shift1, eps)
+        ok, err = _bf16_ulp_ok(torch, got, adaln.norm_affine_reference(x, w1, shift1, eps))
+        ms, lib_ms = _cuda_ms_turns(torch, [
+            lambda: adaln.norm_affine(x, w1, shift1, eps),
+            lambda: F.layer_norm(x, (dim,), nw.to(torch.bfloat16), nb.to(torch.bfloat16), eps)],
+            50)
+        plain_ms = _cuda_ms(torch, lambda: adaln.norm_affine_reference(x, w1, shift1, eps), 10)
+        record("norm_affine", shape + " -> h", ok, err, ms, plain_ms, "1 bf16 ulp of the row",
+               main, 0.0, _nbytes(x, got) + tables, library_ms=lib_ms,
+               library_call="F.layer_norm, bf16, its own affine")
+
+        xo, h = adaln.add_norm_affine(x, y, gate1, nw, nb, eps)
+        want_x, want_h = adaln.add_norm_affine_reference(x, y, gate1, nw, nb, eps)
+        ok, err = _bf16_ulp_ok(torch, h, want_h)
+        ok = ok and torch.equal(xo, want_x)
+        ms = _cuda_ms(torch, lambda: adaln.add_norm_affine(x, y, gate1, nw, nb, eps), 50)
+        plain_ms = _cuda_ms(
+            torch, lambda: adaln.add_norm_affine_reference(x, y, gate1, nw, nb, eps), 10)
+        record("add_norm_affine", shape + " y, gate -> x', h", ok, err, ms, plain_ms,
+               "x' exact, h 1 bf16 ulp of the row", main, 0.0,
+               _nbytes(x, y, xo, h, gate1, nw, nb))
+
+        out = adaln.gated_add(x, y2, gate2)
+        want = adaln.gated_add_reference(x, y2, gate2)
+        ok, err = torch.equal(out, want), _max_err(out, want)
+        g16 = gate2.to(torch.bfloat16)
+        ms, lib_ms = _cuda_ms_turns(torch, [lambda: adaln.gated_add(x, y2, gate2),
+                                            lambda: torch.addcmul(x, g16, y2)], 50)
+        plain_ms = _cuda_ms(torch, lambda: adaln.gated_add_reference(x, y2, gate2), 10)
+        record("gated_add", shape + " y, gate -> x'", ok, err, ms, plain_ms, "exact", main,
+               0.0, _nbytes(x, y2, out, gate2), library_ms=lib_ms,
+               library_call="torch.addcmul, bf16")
+
+        # One block's glue as the block runs it, in turns with the expression.
+        def glue(norm, add_norm, gated):
+            hh = norm(x, 1 + scale1, shift1, eps)
+            xx, n = add_norm(x, y, gate1, nw, nb, eps)
+            xx, hh = add_norm(xx, n, None, 1 + scale2, shift2, eps)
+            return gated(xx, hh, gate2)
+
+        fused = (adaln.norm_affine, adaln.add_norm_affine, adaln.gated_add)
+        plain = (adaln.norm_affine_reference, adaln.add_norm_affine_reference,
+                 adaln.gated_add_reference)
+        fused_ms, plain_ms = _cuda_ms_turns(torch, [lambda: glue(*fused),
+                                                    lambda: glue(*plain)], 10)
+        bound_ms, _ = _bound(0.0, 26 * length * dim)
+        res[name] = dict(block_glue_ms=fused_ms, expression_ms=plain_ms,
+                         bound_ms=bound_ms)
+        print(f"block glue {name} [1,{length},{dim}] (4 kernels, 26 bytes an element): "
+              + json.dumps(res[name]))
+        del x, y, y2, got, xo, h, want_x, want_h, out, want
+        torch.cuda.empty_cache()
+    return res
+
+
 def check_wan_i2v_kernels(torch, dev, checks):
     """Phase 25, first half: the kernels of the I2V 480p path at its 40
     heads over 32,760 tokens, each against its plain version (f32) on every
@@ -2536,10 +2658,12 @@ def serve_wan_i2v(torch, dev):
     assert u8.shape == (1, 81, 480, 832, 3) and torch.isfinite(frames).all()
     n = c.num_layers * args.steps
     want = {"dense_fwd": 4 * n, "sparse_fwd": n, "pack_kv": n, "norm_rope": 2 * n,
-            "heads_pack": 5 * n, "heads_unpack": n}
+            "heads_pack": 5 * n, "heads_unpack": n, **_glue_launches(c.num_layers, args.steps)}
     for name, count in launches.items():
         assert count == want.get(name, 0), (name, count, want.get(name, 0))
     assert counters["dit.cross_attn.image_calls"] == counters["dit.cross_attn.calls"] == n
+    assert counters["dit.modulate.fused_calls"] == n, counters
+    assert "dit.modulate.autograd_calls" not in counters, counters
     result = dict(clip_s=clip_s, encode_s=counters["encode.seconds"],
                   sample_s=counters["sample.seconds"], decode_s=counters["decode.seconds"],
                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
@@ -2690,6 +2814,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     lanes = check_multilevel_backward(torch, dev, checks)
+    gc.collect()
+    torch.cuda.empty_cache()
+    block_glue = check_wan_modulate(torch, dev, checks)
     assert set(checks) == set(_build.KERNELS), (set(checks), set(_build.KERNELS))
     gc.collect()
     torch.cuda.empty_cache()
@@ -2754,6 +2881,8 @@ def main():
         cross_attn_library_ms={name: r["library_fwd_ms"] for name, r in cross_attn.items()},
         i2v_clip_s=i2v["clip_s"], i2v_encode_s=i2v["encode_s"],
         i2v_peak_mem_gib=i2v["peak_mem_gib"], i2v_kernel_check_density=i2v_density,
+        block_glue_ms={name: r["block_glue_ms"] for name, r in block_glue.items()},
+        block_glue_expression_ms={name: r["expression_ms"] for name, r in block_glue.items()},
         wall_s=time.perf_counter() - t_start)))
     paths = {"serve_wan": serve_launches, "train_wan": train_launches,
              "serve_cog": cog_launches, "serve_wan14b": w14_launches,

@@ -16,7 +16,10 @@ sparse backward as the port runs it; ``check_cog_energy``, phase 18: the
 same at CogVideoX d = 64, with its sparse forward and ``pack_kv``) and
 ``check_wan_cross_attn`` (phase 24: the dense forward and backward over
 Wan's 512 text keys, and ``WanCrossAttention`` whole in turns with the
-library expression the kernels replaced).
+library expression the kernels replaced) and ``check_wan_modulate`` (phase
+26: Wan's block glue at the 1.3B's and the 14B's rows, the LayerNorm
+kernels in turns with ``F.layer_norm``, and one block's glue whole in turns
+with the expression it replaced).
 
     python3 scripts/torch_kernel_times.py [PHASE ...]
 
@@ -62,7 +65,7 @@ def main():
                              "check_wan14b_carry", "check_cog_pooled_fwd",
                              "check_cog_multilevel", "check_cog_qk",
                              "check_last_kernels", "check_backward", "check_cog_energy",
-                             "check_wan_cross_attn"]
+                             "check_wan_cross_attn", "check_wan_modulate"]
     for name in names:
         phase = getattr(smoke, name)
         try:

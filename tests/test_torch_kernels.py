@@ -20,7 +20,7 @@ from blade.kernels import ref_attention as jref
 from blade.kernels.norm_rope import norm_rope_heads as j_norm_rope_heads
 from blade.kernels.pack import pack_kv as j_pack_kv
 from blade.models.layers import deinterleave_perm, rope_3d_tables
-from blade_torch.kernels import _build, ref_attention as tref
+from blade_torch.kernels import _build, adaln, ref_attention as tref
 from blade_torch.kernels import block_sparse_attn as tbsa
 from blade_torch.kernels.block_sparse_attn import (
     block_sparse_attention,
@@ -208,12 +208,17 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
         sum(o.sum() for o in outs).backward()
     finally:
         tbsa.SPARSE_UNION = old
+    x, gate = q[0].detach(), torch.ones(1, 64)  # Wan's block glue
+    adaln.norm_affine(x, gate, gate, 1e-6)
+    adaln.add_norm_affine(x, x, gate, gate, gate, 1e-6)
+    adaln.gated_add(x, x, gate)
     assert set(_build.KERNELS) == {"dense_fwd", "sparse_fwd", "pack_kv", "norm_rope",
                                    "dense_dq", "dense_dkv", "sparse_dq", "sparse_dkv",
                                    "pack_kv_pyramid", "multilevel_fwd", "pooled_level_fwd",
                                    "pooled_predictor", "sparse_union_fwd", "heads_pack",
                                    "heads_unpack", "pooled_level_dq", "pooled_level_dkv",
-                                   "attn_delta", "qk_norm_rope", "qk_norm_rope_dx"}
+                                   "attn_delta", "qk_norm_rope", "qk_norm_rope_dx",
+                                   "norm_affine", "add_norm_affine", "gated_add"}
     assert all(kern.launches == 0 for kern in _build.KERNELS.values())
 
 
@@ -231,6 +236,10 @@ def test_kernel_sources_and_build_flags():
                 continue
             if kern.name.startswith("qk_norm_rope"):  # no TPU kernel: CogVideoX's q/k, XLA
                 assert "q, k, v = heads(q), heads(k), heads(v)" in tpu_line, tpu_line
+                continue
+            if kern.source.endswith("adaln.cu"):  # no TPU kernel: Wan's block glue, XLA
+                assert {"norm_affine": "h = ln()(x)", "add_norm_affine": "x = x + (gate1 *",
+                        "gated_add": "x = x + (gate2 *"}[kern.name] in tpu_line, tpu_line
                 continue
             assert tpu_line.startswith("def _") and "kernel" in tpu_line, tpu_line
     with pytest.raises(ValueError):

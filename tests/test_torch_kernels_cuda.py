@@ -23,7 +23,9 @@ largest value, output and gradients, against the f32 expression it replaced.
 The level carry (a level mask past the fused lane's rule in one #11 carry)
 is held to the fused lane's tolerances against the plain function and to
 four bf16 ulps at the largest output against the per-level lane, which
-rounds each level's output before its merge.
+rounds each level's output before its merge.  Wan's block glue (LayerNorm
+and modulation, the gated residuals): residual outputs bit for bit, normed
+outputs within one bf16 ulp at each row's largest value.
 """
 
 import math
@@ -1062,6 +1064,68 @@ def test_streaming_encode_matches_the_whole_clip_on_the_card(dev):
         streamed, whole = V.streaming_encode(vae, video), vae.encode(video)
     assert streamed.shape == (1, 3, 8, 12, 16)
     assert _err(streamed, whole) <= 1e-4 * whole.abs().max().item()
+
+
+# Wan's block glue (csrc/adaln.cu): the 1.3B's and the 14B's rows whole, a
+# ragged row count at each width (the last CTA's row slots not all filled),
+# B = 2 with a modulation row a sample, and the tiny width (a chunk a lane).
+@pytest.mark.parametrize("b,s,dim", [
+    (1, 32760, 1536), (1, 75600, 5120), (1, 1001, 5120), (1, 333, 1536),
+    (2, 503, 1536), (2, 37, 5120), (2, 50, 128),
+])
+def test_block_glue_kernels_match_plain(dev, b, s, dim):
+    """The residual outputs bit for bit (the plain version's roundings, in
+    its order); the normed outputs within one bf16 ulp at each row's largest
+    value (the LayerNorm's sums in another order can turn one rounding);
+    each call one launch of its kernel.  Tables: a row a sample (the
+    modulation) and one shared row (the cross-attention LayerNorm's weight
+    and bias)."""
+    from blade_torch.kernels import adaln
+
+    gen = torch.Generator(device=dev).manual_seed(b * s + dim)
+    x, y, y2 = (_rand(gen, b, s, dim, dev=dev) for _ in range(3))
+    e = 0.5 * torch.randn((b, 6, dim), generator=gen, device=dev)
+    shift, scale, gate = e.unbind(1)[:3]
+    w, bias = 1.0 + 0.2 * torch.randn(dim, generator=gen, device=dev), \
+        0.1 * torch.randn(dim, generator=gen, device=dev)
+
+    def close(got, want):
+        assert got.shape == want.shape and got.dtype == torch.bfloat16
+        top = torch.maximum(got.float().abs(), want.float().abs()).amax(-1, keepdim=True)
+        err = (got.float() - want.float()).abs()
+        assert (err <= _bf16_ulp(top)).all(), err.max()
+
+    launches = {n: _build.KERNELS[n].launches for n in
+                ("norm_affine", "add_norm_affine", "gated_add")}
+    close(adaln.norm_affine(x, 1 + scale, shift, 1e-6),
+          adaln.norm_affine_reference(x, 1 + scale, shift, 1e-6))
+    close(adaln.norm_affine(x, w, bias, 1e-6), adaln.norm_affine_reference(x, w, bias, 1e-6))
+    for g, tw, tb in ((gate, w, bias), (None, 1 + scale, shift)):
+        xo, h = adaln.add_norm_affine(x, y, g, tw, tb, 1e-6)
+        want_x, want_h = adaln.add_norm_affine_reference(x, y, g, tw, tb, 1e-6)
+        assert torch.equal(xo, want_x)
+        close(h, want_h)
+    assert torch.equal(adaln.gated_add(x, y2, gate), adaln.gated_add_reference(x, y2, gate))
+    torch.cuda.synchronize()
+    assert {n: _build.KERNELS[n].launches - k for n, k in launches.items()} == {
+        "norm_affine": 2, "add_norm_affine": 2, "gated_add": 1}
+
+
+def test_block_glue_kernels_never_fall_back(dev):
+    """A call autograd would record, f32 rows, or a table of the wrong width
+    raise: the kernels are forward only and take bf16 rows."""
+    from blade_torch.kernels import adaln
+
+    x = torch.randn(1, 4, 128, device=dev, dtype=torch.bfloat16)
+    w = torch.ones(1, 128, device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        adaln.norm_affine(x, w, w, 1e-6)
+    with torch.no_grad():
+        adaln.norm_affine(x, w, w, 1e-6)
+        with pytest.raises(TypeError):
+            adaln.gated_add(x.float(), x.float(), w)
+        with pytest.raises(ValueError, match="table"):
+            adaln.gated_add(x, x, w[:, :64])
 
 
 def test_cuda_inputs_never_fall_back(dev):

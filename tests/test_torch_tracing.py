@@ -24,6 +24,10 @@
   ``dit.cross_attn.image_calls`` once a layer a forward and
   ``encode.seconds``; the text-to-video families open and count none of
   them.
+* Wan's block glue counts ``dit.modulate.fused_calls`` once a layer a
+  no-grad forward (CogVideoX counts nothing of it) and
+  ``dit.modulate.autograd_calls`` once a layer a forward autograd records;
+  remat's recomputation counts neither.
 * Past the fused lane's rule an int level mask takes the per-level lane on
   the CPU (the level carry is the card's); the carry itself opens
   ``asa.level_lists`` and counts ``asa.level_carry_calls``, not where
@@ -375,6 +379,47 @@ def test_remat_counts_the_recomputed_cross_attentions_alone(remat):
     if remat:
         want["dit.cross_attn.recomputed_calls"] = layers
     assert _cross_attn_counters() == want
+
+
+# -- Wan's block glue: the row kernels' route and the expression's ---------------
+
+MODULATE = ("dit.modulate.fused_calls", "dit.modulate.autograd_calls")
+
+
+def _modulate_counters():
+    return {n: v for n, v in tracing.counters().items() if n in MODULATE}
+
+
+@pytest.mark.parametrize("family", sorted(LANES))
+def test_generate_counts_the_glue_kernels_once_a_wan_layer_a_forward(family):
+    pipe = _pipe(family)
+    with profile(activities=[ProfilerActivity.CPU]):
+        pipe.generate(_text(pipe), generator=make_generator(2), num_steps=STEPS)
+    layers = pipe.preset.dit.num_layers
+    want = {"dit.modulate.fused_calls": STEPS * layers} if family == "wan" else {}
+    assert _modulate_counters() == want
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_a_gradient_forward_counts_the_expression_and_remat_counts_neither(remat):
+    """A no-grad forward takes the row kernels' route in every block; a
+    forward autograd records takes the expression in every block; remat's
+    recomputation in the backward counts on neither route."""
+    model = WanModel(WAN_TINY, dtype=torch.float32, remat=remat)
+    model.random_init_(make_generator(7))
+    g = make_generator(8)
+    latents = torch.randn((1, WAN_TINY.in_channels, 2, 8, 8), generator=g)
+    text = torch.randn((1, 12, WAN_TINY.text_dim), generator=g)
+    layers = WAN_TINY.num_layers
+    with profile(activities=[ProfilerActivity.CPU]):
+        with torch.no_grad():
+            model(latents, torch.tensor([500.0]), text)
+    assert _modulate_counters() == {"dit.modulate.fused_calls": layers}
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        model(latents, torch.tensor([500.0]), text).square().mean().backward()
+    assert model.blocks[0].scale_shift_table.grad is not None
+    assert _modulate_counters() == {"dit.modulate.autograd_calls": layers}
 
 
 # -- Wan2.1-I2V: the encode and the image branch ------------------------------
